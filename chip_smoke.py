@@ -6,19 +6,38 @@ Phases, each printing one JSON line with its seconds before the next starts:
 
 1. device: requires CUDA (exits non-zero otherwise) and prints the card's
    name and power limit as nvidia-smi reports them;
-2. build: compiles every kernel of the evaluation path with nvcc (sm_90a);
+2. build: compiles every kernel of the evaluation and training paths with
+   nvcc (sm_90a), one nvcc process per source, all started together;
 3. kernels: holds K1 (fused graph attention) against its plain PyTorch
-   version on the card at the evaluation path's shapes (rows = envs, A = 20
-   humans, D = 512, 8 heads), in f32 (atol 3e-4) and bf16 (atol 3e-2), with
-   an all-masked row checked for isolation, and times it beside its plain
-   version, its bound and a PyTorch library composition;
+   version on the card at every shape the paths give it (rows = 32 for the
+   evaluation's cases, 64 for the rollout's envs, 960 for the update's
+   minibatch; A = 20 humans, D = 512, 8 heads), in f32 (atol
+   3e-4) and bf16 (atol 3e-2), with an all-masked row checked for
+   isolation; holds K2 (its backward) against its plain version at the
+   update's shape in f32 (atol 5e-3 / rtol 1e-3) and bf16 (max abs error
+   <= 1e-2 x the largest entry of each gradient), with an all-masked row
+   whose dx must be 0 and a second run that must give the same bits; times
+   each beside its plain version, its bound and a PyTorch library
+   composition;
 4. evaluate: loads the committed weights and runs the port's seeded
    evaluation of the flagship pair (trained_models/
    GST_predictor_rand_tpu_r5_selfgst, test cases 0..31 as one batch, K1 in
    bf16 in the policy), with every launch count zeroed just before and read
    just after; fails on a non-finite metric, success_rate < 0.70, or a
    kernel of the path that never launched. The policy's first action is also
-   checked against the same weights on the CPU.
+   checked against the same weights on the CPU;
+5. train: the flagship recipe from the same snapshot (64 envs, 30 steps, 5
+   epochs x 2 minibatches, lr 4e-5 with linear decay, K1/K2 in bf16),
+   warm-started from the committed policy and GST weights, runs 2
+   ``train_iteration``s with the launch counts zeroed just before and read
+   just after (K1 = 2 x (31 + 10), K2 = 2 x 10); fails on a non-finite
+   loss, on an attention-block module whose params did not change, or on
+   another count. Then, on a further rollout: the PPO loss gradient of one
+   minibatch through the kernels against the same through the plain
+   versions on the card (cosine >= 0.999 over all params, and relative
+   error <= 1e-3 on each leaf of the attention block), a timed update, and a
+   checkpoint whose params .npz, reloaded with load_policy, must give the
+   same deterministic action bit for bit.
 
 The last two lines are the kernels line ({"kernels": [...]}) and
 {"ok": true, "device": {...}}. Nothing falls back to the CPU: a phase that
@@ -27,17 +46,20 @@ fails ends the run with a non-zero exit code and no result line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
 from crowdnav_prediction_attngraph_tpu_torch.algo import evaluation
+from crowdnav_prediction_attngraph_tpu_torch.algo import ppo
 from crowdnav_prediction_attngraph_tpu_torch.config import config_from_snapshot
 from crowdnav_prediction_attngraph_tpu_torch.env import crowd_sim
 from crowdnav_prediction_attngraph_tpu_torch.env.pretext import pretext_process
@@ -47,20 +69,36 @@ from crowdnav_prediction_attngraph_tpu_torch.models.policy_net import (
     init_hidden, obs_to_dict)
 from crowdnav_prediction_attngraph_tpu_torch.ops import _build, masked_attention
 from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
-    fused_graph_attention, reference_fused_graph_attention)
+    fused_graph_attention, fused_graph_attention_backward,
+    reference_fused_graph_attention, reference_fused_graph_attention_backward)
 from crowdnav_prediction_attngraph_tpu_torch.test import (
     DEFAULT_GST_PARAMS, DEFAULT_PARAMS)
+from crowdnav_prediction_attngraph_tpu_torch.utils import checkpoint
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL_DIR = os.path.join(REPO, "trained_models",
                          "GST_predictor_rand_tpu_r5_selfgst")
 N_CASES = 32
 MIN_SUCCESS = 0.70
+TRAIN_ITERS = 2
+K1_ROWS = (N_CASES, 64, 960)
 A, D, HEADS = 20, 512, 8
 # NVIDIA H100 SXM data-sheet peaks (dense) and memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 ATOL = {torch.float32: 3e-4, torch.bfloat16: 3e-2}
+K2_BF16_REL = 1e-2
+GRADS = ("dx", "dw_qkv", "db_qkv", "dw_out", "db_out")
+# human-human attention modules whose params the update must move
+ATTN_MODULES = ("embed_0", "embed_1", "q_linear", "k_linear", "v_linear",
+                "mha_in_proj", "mha_out_proj")
+# each attention leaf's gradient through the kernels against the plain
+# versions: ||g_kernel - g_plain|| / ||g_plain|| per leaf. The k bias's
+# gradient is zero in exact arithmetic (softmax ignores a shift of every
+# logit in a row), so both sides are rounding noise there: that leaf is
+# held against the norm of the whole block's gradient instead.
+LEAF_REL = 1e-3
+ZERO_GRAD_LEAF = "spatial_attn.k_linear.bias"
 
 
 def emit(phase: str, t0: float, **kw):
@@ -109,20 +147,38 @@ def time_ms(fn, reps: int = 30) -> float:
     return statistics.median(times)
 
 
-def k1_bound_ms(rows: int, dtype) -> tuple:
-    """The least time for K1's work at these shapes: the larger of its bytes
-    (each input read once, the output written once) over the memory rate and
-    its operations over the peak rate for the compute type."""
-    tokens = rows * A
-    flops = (2 * tokens * D * 3 * D            # QKV projection
-             + 2 * 2 * rows * HEADS * A * A * (D // HEADS)   # QK^T and PV
-             + 2 * tokens * D * D)             # output projection
-    nbytes = (4 * tokens * D + tokens          # x, mask
-              + 4 * (D * 3 * D + 3 * D + D * D + D)   # weights and biases
-              + 4 * tokens * D)                # output
+def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
+    """The larger of the bytes over the memory rate and the operations over
+    the peak rate for the compute type, and which of the two it is."""
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_bound_ms(rows: int, dtype) -> tuple:
+    """K1's work at these shapes: each input read once, the output written
+    once; the QKV projection, QK^T and PV, and the output projection."""
+    tokens = rows * A
+    flops = (2 * tokens * D * 3 * D
+             + 2 * 2 * rows * HEADS * A * A * (D // HEADS)
+             + 2 * tokens * D * D)
+    nbytes = (4 * tokens * D + tokens
+              + 4 * (D * 3 * D + 3 * D + D * D + D)
+              + 4 * tokens * D)
+    return bound_ms(flops, nbytes, dtype)
+
+
+def k2_bound_ms(rows: int, dtype) -> tuple:
+    """K2's work as the TPU kernel does it, not counting the port's scratch:
+    x, g, the mask and the weights read once, dx and the four weight
+    gradients written once; 22 T D^2 FLOP of projections (q/k/v recompute
+    6, dattn 2, dx 6, dW_qkv 6, dW_out 2) and 12 rows A^2 D of attention
+    (logits, P v, dv, dP, dq, dk)."""
+    tokens = rows * A
+    flops = 22 * tokens * D * D + 12 * rows * A * A * D
+    nbytes = (4 * 2 * tokens * D + tokens + 4 * (D * 3 * D + 3 * D + D * D)
+              + 4 * tokens * D + 4 * (D * 3 * D + 3 * D + D * D + D))
+    return bound_ms(flops, nbytes, dtype)
 
 
 def k1_library(x, mask, w_qkv, b_qkv, w_out, b_out, dtype):
@@ -133,7 +189,7 @@ def k1_library(x, mask, w_qkv, b_qkv, w_out, b_out, dtype):
     bq, bo = b_qkv.to(dtype), b_out.to(dtype)
     attn_mask = mask[:, None, None, :]
 
-    def run():
+    def run(xc=xc, wq=wq, bq=bq, wo=wo, bo=bo):
         qkv = torch.addmm(bq, xc.reshape(-1, D), wq).reshape(rows, A, 3, HEADS,
                                                              D // HEADS)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
@@ -141,6 +197,16 @@ def k1_library(x, mask, w_qkv, b_qkv, w_out, b_out, dtype):
             q, k, v, attn_mask=attn_mask)
         return torch.addmm(bo, o.transpose(1, 2).reshape(-1, D), wo)
     return run
+
+
+def k2_library(x, mask, w_qkv, b_qkv, w_out, b_out, g, dtype):
+    """The backward of :func:`k1_library` by autograd (yardstick only): the
+    graph is built once, each call runs only the backward."""
+    leaves = [t.to(dtype).requires_grad_(True)
+              for t in (x, w_qkv, b_qkv, w_out, b_out)]
+    out = k1_library(x, mask, w_qkv, b_qkv, w_out, b_out, dtype)(*leaves)
+    gc = g.reshape(-1, D).to(dtype)
+    return lambda: torch.autograd.grad(out, leaves, gc, retain_graph=True)
 
 
 def check_k1(rows: int, device) -> dict:
@@ -173,10 +239,238 @@ def check_k1(rows: int, device) -> dict:
             lambda: reference_fused_graph_attention(*args, HEADS,
                                                     compute_dtype=dtype))
         res[f"library_ms_{tag}"] = time_ms(k1_library(*args, dtype))
-        bound, by = k1_bound_ms(rows, dtype)
-        res[f"bound_ms_{tag}"] = bound
-        res[f"bound_by_{tag}"] = by
+        res[f"bound_ms_{tag}"], res[f"bound_by_{tag}"] = k1_bound_ms(rows,
+                                                                     dtype)
     return res
+
+
+def check_k2(rows: int, device) -> dict:
+    x, mask, w_qkv, b_qkv, w_out, b_out = k1_inputs(rows, seed=rows + 7,
+                                                    device=device)
+    mask[1] = False                                   # an all-masked row
+    g = torch.randn(rows, A, D, generator=torch.Generator().manual_seed(
+        rows)).to(device)
+    args = (x, mask, w_qkv, b_qkv, w_out, g)
+    res = {"rows": rows}
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        got = fused_graph_attention_backward(*args, HEADS, compute_dtype=dtype)
+        torch.cuda.synchronize()
+        expect = reference_fused_graph_attention_backward(
+            *args, HEADS, compute_dtype=dtype)
+        errs = {}
+        for name, t, e in zip(GRADS, got, expect):
+            err = (t - e).abs().max().item()
+            scale = e.abs().max().item()
+            errs[name] = err
+            ok = (torch.allclose(t, e, rtol=1e-3, atol=5e-3)
+                  if dtype == torch.float32 else err <= K2_BF16_REL * scale)
+            if not (ok and math.isfinite(err)):
+                fail(f"K2 {tag} rows={rows} {name}: max abs err {err} "
+                     f"(largest entry {scale})")
+        if torch.count_nonzero(got[0][1]):
+            fail(f"K2 {tag}: the all-masked row's dx is not 0")
+        again = fused_graph_attention_backward(*args, HEADS,
+                                               compute_dtype=dtype)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K2 {tag}: two runs on the same inputs differ")
+        res[f"max_abs_err_{tag}"] = max(errs.values())
+        res[f"max_abs_err_by_grad_{tag}"] = errs
+        res[f"kernel_ms_{tag}"] = time_ms(lambda: fused_graph_attention_backward(
+            *args, HEADS, compute_dtype=dtype), reps=10)
+        res[f"plain_ms_{tag}"] = time_ms(
+            lambda: reference_fused_graph_attention_backward(
+                *args, HEADS, compute_dtype=dtype), reps=10)
+        res[f"library_ms_{tag}"] = time_ms(
+            k2_library(x, mask, w_qkv, b_qkv, w_out, b_out, g, dtype), reps=10)
+        res[f"bound_ms_{tag}"], res[f"bound_by_{tag}"] = k2_bound_ms(rows,
+                                                                     dtype)
+    return res
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route K1 and K2 of the autograd.Function through their plain
+    versions on the card (the comparison of the train phase)."""
+    saved = (masked_attention._launch_forward,
+             masked_attention.fused_graph_attention_backward)
+    masked_attention._launch_forward = reference_fused_graph_attention
+    masked_attention.fused_graph_attention_backward = \
+        reference_fused_graph_attention_backward
+    try:
+        yield
+    finally:
+        (masked_attention._launch_forward,
+         masked_attention.fused_graph_attention_backward) = saved
+
+
+def zero_counts():
+    fused_graph_attention.launches = 0
+    fused_graph_attention_backward.launches = 0
+
+
+def read_counts() -> dict:
+    return {"K1_fused_graph_attention": fused_graph_attention.launches,
+            "K2_fused_graph_attention_backward":
+                fused_graph_attention_backward.launches}
+
+
+def phase_evaluate(cfg, gst, device) -> dict:
+    t0 = time.perf_counter()
+    policy = pmod.load_policy(cfg, DEFAULT_PARAMS, device)
+
+    # the policy on the card (kernel) against the same weights on the CPU
+    # (plain K1), on the first observation of the suite
+    gens = [evaluation.case_generator(cfg.ppo.seed, i) for i in range(4)]
+    st, ob = crowd_sim.reset(cfg, gens, device)
+    st, ob, _, _ = pretext_process(cfg, gst, st, ob, torch.zeros(4,
+                                                                 device=device))
+    obs_d = obs_to_dict(ob)
+    _, act_gpu, _, _ = pmod.act(policy, obs_d, init_hidden(cfg, 4, device),
+                                torch.ones(4, device=device))
+    policy_cpu = pmod.load_policy(cfg, DEFAULT_PARAMS, "cpu")
+    _, act_cpu, _, _ = pmod.act(policy_cpu, {k: v.cpu() for k, v in
+                                             obs_d.items()},
+                                init_hidden(cfg, 4, "cpu"), torch.ones(4))
+    act_err = (act_gpu.cpu() - act_cpu).abs().max().item()
+    if not act_err <= 5e-2:
+        fail(f"policy action on the card vs the CPU differs by {act_err}")
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t_eval = time.perf_counter()
+    res = evaluation.evaluate(cfg, policy, gst, test_size=N_CASES,
+                              batch_size=N_CASES, device=device,
+                              log=lambda m: None)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t_eval
+    launches = read_counts()
+    line = evaluation.format_results(res)
+    metrics = {k: res[k] for k in ("success_rate", "collision_rate",
+                                   "timeout_rate", "nav_time", "path_length",
+                                   "intrusion_ratio", "min_intrusion_dist",
+                                   "mean_episode_reward")}
+    emit("evaluate", t0, cases=N_CASES, metrics_line=line, metrics=metrics,
+         collision_cases=res["collision_cases"],
+         timeout_cases=res["timeout_cases"], env_steps=res["env_steps"],
+         eval_seconds=eval_s, env_steps_per_s=res["env_steps"] / eval_s,
+         launches=launches, policy_action_err_vs_cpu=act_err)
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"non-finite metric: {metrics}")
+    if res["success_rate"] < MIN_SUCCESS:
+        fail(f"success_rate {res['success_rate']} < {MIN_SUCCESS}")
+    if launches["K1_fused_graph_attention"] == 0:
+        fail("K1 was never launched on the evaluation path")
+    return launches
+
+
+def phase_train(cfg, gst, device) -> dict:
+    t0 = time.perf_counter()
+    p = cfg.ppo
+    model = pmod.load_policy(cfg, DEFAULT_PARAMS, device)
+    ts = ppo.init_train_state(cfg, gst, device, model)
+    before = {k: v.clone() for k, v in ts.model.state_dict().items()}
+    init_s = time.perf_counter() - t0
+
+    zero_counts()
+    torch.cuda.synchronize()
+    iter_s, metrics = [], []
+    for _ in range(TRAIN_ITERS):
+        t_it = time.perf_counter()
+        ts, m = ppo.train_iteration(cfg, ts, gst)
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t_it)
+        metrics.append({k: float(m[k]) for k in ("value_loss", "action_loss",
+                                                 "dist_entropy",
+                                                 "reward_mean")})
+    launches = read_counts()
+    n_updates = p.ppo_epoch * p.num_mini_batch
+    expect = {"K1_fused_graph_attention":
+              TRAIN_ITERS * (p.num_steps + 1 + n_updates),
+              "K2_fused_graph_attention_backward": TRAIN_ITERS * n_updates}
+    if launches != expect:
+        fail(f"train launches {launches}, expected {expect}")
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        fail(f"non-finite train metric: {metrics}")
+    after = ts.model.state_dict()
+    if not all(torch.isfinite(v).all() for v in after.values()):
+        fail("non-finite params after the update")
+    unchanged = [mod for mod in ATTN_MODULES
+                 if all(torch.equal(before[k], after[k]) for k in before
+                        if f"spatial_attn.{mod}" in k)]
+    if unchanged:
+        fail(f"params of {unchanged} did not change in the update")
+
+    # a further rollout, timed; the PPO loss gradient of its first
+    # minibatch through the kernels and through the plain versions
+    torch.cuda.synchronize()
+    t_ro = time.perf_counter()
+    ts, batch = ppo.rollout(cfg, ts, gst)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t_ro
+    returns, adv_n = ppo.advantages(cfg, batch)
+    idx = torch.arange(p.num_processes // p.num_mini_batch, device=device)
+    names, params = zip(*ts.model.named_parameters())
+
+    def grad():
+        loss, _ = ppo.ppo_loss(cfg, ts.model, batch, returns, adv_n, idx)
+        return dict(zip(names, torch.autograd.grad(loss, params)))
+    g_kernel = grad()
+    with plain_kernels():
+        g_plain = grad()
+    flat_k, flat_p = (torch.cat([t.flatten() for t in g.values()])
+                      for g in (g_kernel, g_plain))
+    cosine = torch.nn.functional.cosine_similarity(flat_k, flat_p,
+                                                   dim=0).item()
+    rel = ((flat_k - flat_p).norm() / flat_p.norm()).item()
+    if not cosine >= 0.999:
+        fail(f"PPO gradient through the kernels vs the plain versions: "
+             f"cosine {cosine}")
+    # each leaf of the attention block on its own, so a fault there is not
+    # hidden by the rest of the network's larger gradients
+    attn = [k for k in names if any(f"spatial_attn.{m}" in k
+                                    for m in ATTN_MODULES)]
+    attn_norm = torch.cat([g_plain[k].flatten() for k in attn]).norm()
+    leaf_rel = {}
+    for k in attn:
+        diff = (g_kernel[k] - g_plain[k]).norm()
+        floor = attn_norm if k.endswith(ZERO_GRAD_LEAF) else g_plain[k].norm()
+        leaf_rel[k] = (diff / floor).item()
+    worst_leaf = max(leaf_rel, key=leaf_rel.get)
+    if not leaf_rel[worst_leaf] <= LEAF_REL:
+        fail(f"PPO gradient of {worst_leaf} through the kernels vs the plain "
+             f"versions: relative error {leaf_rel[worst_leaf]} > {LEAF_REL}")
+
+    torch.cuda.synchronize()
+    t_up = time.perf_counter()
+    ppo.ppo_update(cfg, ts.model, ts.optimizer, ts.schedule, batch,
+                   ts.generator)
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t_up
+
+    # checkpoint round trip: the params .npz drives the same action
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, ".torch_build")) \
+            as tmp:
+        checkpoint.save_train_state(tmp, ts, TRAIN_ITERS)
+        reloaded = pmod.load_policy(cfg, os.path.join(
+            tmp, f"{TRAIN_ITERS:05d}.npz"), device)
+        resumed, nxt = checkpoint.restore_train_state(tmp, ts)
+    _, a_run, _, _ = pmod.act(ts.model, ts.obs, ts.hxs, ts.masks)
+    _, a_npz, _, _ = pmod.act(reloaded, ts.obs, ts.hxs, ts.masks)
+    if not (torch.equal(a_run, a_npz) and nxt == TRAIN_ITERS + 1):
+        fail("checkpoint round trip: the reloaded params act differently")
+
+    steps = p.num_steps * p.num_processes
+    emit("train", t0, iterations=TRAIN_ITERS, envs=p.num_processes,
+         steps=p.num_steps, ppo_epoch=p.ppo_epoch,
+         num_mini_batch=p.num_mini_batch, lr=p.lr,
+         linear_lr_decay=p.use_linear_lr_decay, init_seconds=init_s,
+         iteration_seconds=iter_s, metrics=metrics, launches=launches,
+         rollout_seconds=rollout_s, rollout_env_steps_per_s=steps / rollout_s,
+         update_seconds=update_s, grad_cosine_kernel_vs_plain=cosine,
+         grad_rel_err_kernel_vs_plain=rel,
+         grad_worst_attn_leaf={"name": worst_leaf,
+                               "rel_err": leaf_rel[worst_leaf]})
+    return launches
 
 
 def main() -> int:
@@ -193,85 +487,50 @@ def main() -> int:
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    reports = _build.build([masked_attention.KERNEL])
+    names = [masked_attention.KERNEL, masked_attention.KERNEL_BWD]
+    reports = _build.build(names)
     ptxas = {k: [ln for ln in v.splitlines() if "registers" in ln
                  or "spill" in ln] for k, v in reports.items()}
-    emit("build", t0, kernels=[masked_attention.KERNEL], ptxas=ptxas)
+    emit("build", t0, kernels=names, ptxas=ptxas)
 
     t0 = time.perf_counter()
-    k1 = {rows: check_k1(rows, device) for rows in (N_CASES, 100)}
-    emit("kernels", t0, k1=k1)
+    # the paths' shapes: evaluation (32 cases), rollout act/get_value (64
+    # envs) and the update's minibatch (30 steps x 32 envs)
+    k1 = {rows: check_k1(rows, device) for rows in K1_ROWS}
+    k2 = check_k2(960, device)
+    emit("kernels", t0, k1=k1, k2=k2)
 
-    t0 = time.perf_counter()
     cfg = config_from_snapshot(os.path.join(MODEL_DIR, "config.json"))
-    policy = pmod.load_policy(cfg, DEFAULT_PARAMS, device)
     gst = load_gst(cfg.pred, DEFAULT_GST_PARAMS, device)
+    eval_launches = phase_evaluate(cfg, gst, device)
+    train_launches = phase_train(cfg, gst, device)
 
-    # the policy on the card (kernel) against the same weights on the CPU
-    # (plain K1), on the first observation of the suite
-    gens = [evaluation.case_generator(cfg.ppo.seed, i) for i in range(4)]
-    st, ob = crowd_sim.reset(cfg, gens, device)
-    st, ob, _, _ = pretext_process(cfg, gst, st, ob, torch.zeros(4,
-                                                                 device=device))
-    obs_d = obs_to_dict(ob)
-    _, act_gpu, _, _ = pmod.act(policy, obs_d, init_hidden(cfg, 4, device),
-                                torch.ones(4, device=device))
-    policy_cpu = pmod.load_policy(cfg, DEFAULT_PARAMS, "cpu")
-    _, act_cpu, _, _ = pmod.act(policy_cpu, {k: v.cpu() for k, v in
-                                             obs_d.items()},
-                                init_hidden(cfg, 4), torch.ones(4))
-    act_err = (act_gpu.cpu() - act_cpu).abs().max().item()
-    if not act_err <= 5e-2:
-        fail(f"policy action on the card vs the CPU differs by {act_err}")
-
-    masked_attention.fused_graph_attention.launches = 0
-    torch.cuda.synchronize()
-    t_eval = time.perf_counter()
-    res = evaluation.evaluate(cfg, policy, gst, test_size=N_CASES,
-                              batch_size=N_CASES, device=device,
-                              log=lambda m: None)
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t_eval
-    launches = {"K1_fused_graph_attention":
-                masked_attention.fused_graph_attention.launches}
-    line = evaluation.format_results(res)
-    metrics = {k: res[k] for k in ("success_rate", "collision_rate",
-                                   "timeout_rate", "nav_time", "path_length",
-                                   "intrusion_ratio", "min_intrusion_dist",
-                                   "mean_episode_reward")}
-    emit("evaluate", t0, cases=N_CASES, metrics_line=line, metrics=metrics,
-         collision_cases=res["collision_cases"],
-         timeout_cases=res["timeout_cases"], env_steps=res["env_steps"],
-         eval_seconds=eval_s, env_steps_per_s=res["env_steps"] / eval_s,
-         launches=launches, policy_action_err_vs_cpu=act_err)
-    if not all(math.isfinite(v) for v in metrics.values()):
-        fail(f"non-finite metric: {metrics}")
-    if res["success_rate"] < MIN_SUCCESS:
-        fail(f"success_rate {res['success_rate']} < {MIN_SUCCESS}")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"{name} was never launched on the evaluation path")
-
-    m = k1[N_CASES]
-    entry = {
-        "name": "K1_fused_graph_attention", "route": "cuda",
-        "source": "crowdnav_prediction_attngraph_tpu_torch/ops/csrc/"
-                  "fused_graph_attention.cu",
-        "replaces": "crowdnav_prediction_attngraph_tpu/ops/"
-                    "masked_attention.py:175",
-        "launches": launches["K1_fused_graph_attention"],
-        "shape": {"rows": N_CASES, "A": A, "D": D, "heads": HEADS,
-                  "dtype": "bf16"},
-        "max_abs_err": m["max_abs_err_bf16"], "ms": m["kernel_ms_bf16"],
-        "plain_ms": m["plain_ms_bf16"], "bound_ms": m["bound_ms_bf16"],
-        "bound_by": m["bound_by_bf16"], "library_ms": m["library_ms_bf16"],
-        "max_abs_err_f32": m["max_abs_err_f32"],
-        "max_abs_err_bf16": m["max_abs_err_bf16"],
-        "kernel_ms": m["kernel_ms_bf16"],
-        "f32": {k[:-4]: v for k, v in m.items() if k.endswith("_f32")},
-        "rows100": k1[100],
-    }
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    def entry(name, source, replaces, m, shape):
+        by_path = {"evaluate": eval_launches[name],
+                   "train": train_launches[name]}
+        return {
+            "name": name, "route": "cuda",
+            "source": f"crowdnav_prediction_attngraph_tpu_torch/ops/csrc/"
+                      f"{source}",
+            "replaces": f"crowdnav_prediction_attngraph_tpu/ops/"
+                        f"masked_attention.py:{replaces}",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "shape": {**shape, "A": A, "D": D, "heads": HEADS,
+                      "dtype": "bf16"},
+            "max_abs_err": m["max_abs_err_bf16"], "ms": m["kernel_ms_bf16"],
+            "plain_ms": m["plain_ms_bf16"], "bound_ms": m["bound_ms_bf16"],
+            "bound_by": m["bound_by_bf16"],
+            "library_ms": m["library_ms_bf16"],
+            "f32": {k[:-4]: v for k, v in m.items() if k.endswith("_f32")},
+        }
+    k1_entry = entry("K1_fused_graph_attention", "fused_graph_attention.cu",
+                     175, k1[N_CASES], {"rows": N_CASES})
+    for rows in K1_ROWS[1:]:
+        k1_entry[f"rows{rows}"] = k1[rows]
+    k2_entry = entry("K2_fused_graph_attention_backward",
+                     "fused_graph_attention_bwd.cu", 298, k2, {"rows": 960})
+    k2_entry["max_abs_err_by_grad_bf16"] = k2["max_abs_err_by_grad_bf16"]
+    print(json.dumps({"kernels": [k1_entry, k2_entry]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -26,6 +26,7 @@ from ..env.types import (OUTCOME_COLLISION, OUTCOME_DANGER,
                          OUTCOME_REACH_GOAL, OUTCOME_TIMEOUT, tree_where)
 from ..models import policy as policy_mod
 from ..models.policy_net import init_hidden, obs_to_dict
+from ..utils.device import resolve_device
 
 PHASE_OFFSET = {"val": 0, "test": 1000, "train": 2000}
 
@@ -42,11 +43,13 @@ def case_generator(base_seed: int, case_idx: int,
 def evaluate(cfg: Config, policy, gst_model,
              test_size: Optional[int] = None, base_seed: Optional[int] = None,
              batch_size: Optional[int] = None, phase: str = "test",
-             device="cpu", log=print) -> Dict:
+             device="cuda", log=print) -> Dict:
     """Run the seeded suite with a deterministic policy in batches of
-    ``batch_size`` (default: all cases at once). Returns the metrics dict,
-    plus ``env_steps`` (env steps simulated, frozen slots included) and
+    ``batch_size`` (default: all cases at once) on ``device``, where the
+    policy and the GST model must lie. Returns the metrics dict, plus
+    ``env_steps`` (env steps simulated, frozen slots included) and
     ``seconds``."""
+    device = resolve_device(device)
     test_size = test_size or (cfg.env.val_size if phase == "val"
                               else cfg.env.test_size)
     base_seed = cfg.ppo.seed if base_seed is None else base_seed
@@ -112,7 +115,7 @@ def _evaluate_chunk(cfg: Config, policy, gst_model, base_seed: int, idx,
         _, action, _, hxs_new = policy_mod.act(policy, obs_d, hxs, masks,
                                                deterministic=True)
         states_new, obs_new, rew, done, info = crowd_sim.step(
-            cfg, states, action)
+            cfg, states, action, "test")
         states_new, obs_new, rew, _ = pretext_process(
             cfg, gst_model, states_new, obs_new, rew)
         n_steps += 1

@@ -1,18 +1,19 @@
 """The crowd-navigation simulator, natively batched over envs.
 
-Port of the JAX package's ``env/crowd_sim.py`` for what the GST test phase
-needs: robot and human visibility (:65-118), ``build_human_neighbor_inputs``,
-``get_human_actions`` with ORCA humans, the ground-truth future rollout used
-for intrusion accounting (``calc_human_future_traj`` "truth", :201-276),
-``generate_ob`` for the ``inferred`` prediction method, ``calc_reward``,
-respawn, random and end goal changes, ``reset`` and ``step``. Where the JAX
-package vmaps one-env functions, these functions take a leading env axis B;
-every ORCA call solves all (env x human) egos at once.
+Port of the JAX package's ``env/crowd_sim.py`` for what the GST env needs
+in the train and the test phase: robot and human visibility (:65-118),
+``build_human_neighbor_inputs``, ``get_human_actions`` with ORCA humans, the
+ground-truth future rollout used for intrusion accounting in the test phase
+(``calc_human_future_traj`` "truth", :201-276), ``generate_ob`` for the
+``inferred`` prediction method, ``calc_reward``, respawn, random and end goal
+changes, ``reset`` and ``step``. Where the JAX package vmaps one-env
+functions, these functions take a leading env axis B; every ORCA call solves
+all (env x human) egos at once.
 
 Not ported yet (they raise): social-force humans, the unicycle robot, a
 robot visible to the humans, a varying human count (``human_num_range >
-0``), the ``none``/``const_vel``/``truth`` observation methods, the train
-phase's reward, and scripted robot policies.
+0``), the ``none``/``const_vel``/``truth`` observation methods and scripted
+robot policies.
 """
 
 from __future__ import annotations
@@ -232,11 +233,12 @@ def generate_ob(cfg: Config, state: EnvState, reset: bool
     return obs, state
 
 
-def calc_reward(cfg: Config, state: EnvState, future_traj):
-    """R(s, a) for the holonomic robot in the test phase
-    (crowd_sim_var_num.py:465-561): the danger zone comes from the
-    ground-truth future. Returns (reward, done, new_potential, StepInfo),
-    each (B,)."""
+def calc_reward(cfg: Config, state: EnvState, future_traj, phase: str):
+    """R(s, a) for the holonomic robot (crowd_sim_var_num.py:465-561). In the
+    test phase the danger zone comes from the ground-truth future; in the
+    train phase it is the current ``dmin < discomfort_dist`` and the
+    reported min_dist is 0 (JAX ``crowd_sim.py:372-374, 425-428``). Returns
+    (reward, done, new_potential, StepInfo), each (B,)."""
     active = _active_mask(cfg, state.human_num)
     r = state.robot
     d = torch.linalg.norm(state.humans.pos - r.pos[:, None], dim=-1) \
@@ -247,14 +249,19 @@ def calc_reward(cfg: Config, state: EnvState, future_traj):
     reaching_goal = torch.linalg.norm(r.pos - r.goal, dim=-1) < r.radius
 
     zero = torch.zeros_like(dmin)
-    # future danger zone from the ground-truth rollout (:499-511)
-    rel_dist = torch.linalg.norm(future_traj[:, 1:, :, :2]
-                                 - r.pos[:, None, None], dim=-1)
-    hit = rel_dist < r.radius[:, None, None] + cfg.humans.radius
-    danger_cond = hit.flatten(1).any(dim=-1)
-    closest = torch.where(hit, rel_dist, torch.full_like(rel_dist, math.inf))
-    min_danger_dist = torch.where(danger_cond, closest.flatten(1).amin(-1),
-                                  zero)
+    if phase == "train":
+        danger_cond = dmin < cfg.reward.discomfort_dist
+        min_danger_dist = zero
+    else:
+        # future danger zone from the ground-truth rollout (:499-511)
+        rel_dist = torch.linalg.norm(future_traj[:, 1:, :, :2]
+                                     - r.pos[:, None, None], dim=-1)
+        hit = rel_dist < r.radius[:, None, None] + cfg.humans.radius
+        danger_cond = hit.flatten(1).any(dim=-1)
+        closest = torch.where(hit, rel_dist,
+                              torch.full_like(rel_dist, math.inf))
+        min_danger_dist = torch.where(danger_cond,
+                                      closest.flatten(1).amin(-1), zero)
 
     timeout = state.global_time >= cfg.env.time_limit - 1.0
     pot_cur = torch.linalg.norm(r.pos - r.goal, dim=-1)
@@ -409,12 +416,15 @@ def reset(cfg: Config, gens: List[torch.Generator], device
     return state, obs
 
 
-def step(cfg: Config, state: EnvState, action
+def step(cfg: Config, state: EnvState, action, phase: str
          ) -> Tuple[EnvState, Observation, torch.Tensor, torch.Tensor, StepInfo]:
-    """One test-phase control step for every env
-    (crowd_sim_var_num.py:366-460). ``action`` (B, 2) is the raw policy
-    output (vx, vy), clipped here."""
+    """One control step for every env (crowd_sim_var_num.py:366-460; JAX
+    ``crowd_sim.py:657-745``). ``action`` (B, 2) is the raw policy output
+    (vx, vy), clipped here. ``phase`` is "train" or "test"; only the test
+    phase runs the ground-truth future rollout (:694-698)."""
     check_supported(cfg)
+    if phase not in ("train", "test"):
+        raise ValueError(f"phase must be 'train' or 'test', got {phase!r}")
     # this step's random numbers, a fixed count per env whatever happens
     sizes = ((goal_change_draws(cfg) if cfg.humans.random_goal_changing else 0),
              (respawn_draws(cfg) if cfg.humans.end_goal_changing else 0))
@@ -424,10 +434,12 @@ def step(cfg: Config, state: EnvState, action
     a = kinematics.clip_holonomic_action(action, state.robot.v_pref)
     human_actions = get_human_actions(cfg, state)
 
-    # refresh the truth future for intrusion accounting (:385-388)
-    future = calc_human_future_traj(cfg, state, state.visible_masks)
-    state = dataclasses.replace(state, human_future_traj=future)
-    reward, done, new_potential, info = calc_reward(cfg, state, future)
+    if phase == "test":
+        # refresh the truth future for intrusion accounting (:385-388)
+        state = dataclasses.replace(state, human_future_traj=(
+            calc_human_future_traj(cfg, state, state.visible_masks)))
+    reward, done, new_potential, info = calc_reward(
+        cfg, state, state.human_future_traj, phase)
 
     r_pos, r_vel = kinematics.step_holonomic(state.robot.pos, a,
                                              cfg.env.time_step)

@@ -89,3 +89,18 @@ def tree_where(cond: torch.Tensor, new, old):
         c = cond.reshape(cond.shape + (1,) * (new.dim() - 1))
         return torch.where(c, new, old)
     return new
+
+
+def tree_scatter(idx: torch.Tensor, src, dst):
+    """``dst`` with env slots ``idx`` (K,) replaced by the K envs of ``src``,
+    over a dataclass (or dict) of batched tensors. Generators are taken from
+    ``dst``."""
+    if dataclasses.is_dataclass(dst):
+        return dataclasses.replace(dst, **{
+            f.name: tree_scatter(idx, getattr(src, f.name), getattr(dst, f.name))
+            for f in dataclasses.fields(dst)})
+    if isinstance(dst, dict):
+        return {k: tree_scatter(idx, src[k], dst[k]) for k in dst}
+    if isinstance(dst, torch.Tensor):
+        return dst.index_copy(0, idx, src)
+    return dst

@@ -2,9 +2,10 @@
 reference rl/networks/distributions.py:76-95).
 
 State-dependent mean from a linear layer, state-independent ``logstd`` (the
-reference's AddBias over zeros). Only what the evaluation slice needs:
-``mode``, ``log_prob``, ``entropy`` and ``sample`` with an explicit
-``torch.Generator``.
+reference's AddBias over zeros): ``mode``, ``log_prob``, ``entropy`` and
+``sample`` with an explicit ``torch.Generator``. ``log_prob`` and
+``entropy`` are plain tensor expressions, so the PPO loss differentiates
+through them.
 """
 
 from __future__ import annotations

@@ -15,18 +15,19 @@ from typing import Tuple
 import torch
 
 from ...config import PredConfig
+from ...utils.device import resolve_device
 from ...utils.params import params_tree, tree_to_state_dict
 from .st_model import STModel
 
 INVALID = -999.0
 
 
-def load_gst(cfg: PredConfig, params, device="cpu") -> STModel:
-    """An STModel holding ``params`` (a flax-style tree, with or without the
-    top ``'params'`` level, or the path of a ``.npz`` export)."""
+def load_gst(cfg: PredConfig, params, device="cuda") -> STModel:
+    """An STModel on ``device`` holding ``params`` (a flax-style tree, with or
+    without the top ``'params'`` level, or the path of a ``.npz`` export)."""
     model = STModel(cfg)
     model.load_state_dict(tree_to_state_dict(params_tree(params)), strict=True)
-    return model.to(device).eval()
+    return model.to(resolve_device(device)).eval()
 
 
 @torch.no_grad()

@@ -9,9 +9,10 @@ masks. Submodule and parameter names follow the flax tree, so
 
 The human-human attention has two branches, as in the JAX package:
   * the kernel branch (``use_pallas_attention``): the q/k/v linears fold with
-    the packed MHA in_proj into one (D, 3D) matrix (``policy_net.py:119-130``)
-    and ``ops.masked_attention.fused_graph_attention`` (K1) runs QKV
-    projection, masked attention and out-projection in one launch;
+    the packed MHA in_proj into one (D, 3D) matrix inside every forward
+    (``policy_net.py:119-130``) and ``ops.masked_attention.
+    fused_graph_attention`` runs QKV projection, masked attention and
+    out-projection in one launch of K1, with K2 as its backward;
   * the einsum branch (``policy_net.py:140-170``), plain PyTorch.
 The ring-attention branch and the ``use_self_attn`` / ``use_hr_attn`` /
 ``sort_humans`` ablations (all True in every shipped config) are not ported
@@ -67,12 +68,10 @@ class SpatialEdgeSelfAttn(nn.Module):
     True = valid key."""
 
     def __init__(self, input_size: int, attn_size: int = 512,
-                 num_heads: int = 8, use_kernel: bool = False,
-                 kernel_dtype: str = "bfloat16"):
+                 num_heads: int = 8, kernel_dtype: str = "bfloat16"):
         super().__init__()
         D = attn_size
         self.attn_size, self.num_heads = D, num_heads
-        self.use_kernel = use_kernel
         self.kernel_dtype = (torch.float32 if kernel_dtype == "float32"
                              else torch.bfloat16)
         self.embed_0 = nn.Linear(input_size, 128)
@@ -83,40 +82,34 @@ class SpatialEdgeSelfAttn(nn.Module):
         self.mha_in_proj_weight = nn.Parameter(torch.zeros(D, 3 * D))
         self.mha_in_proj_bias = nn.Parameter(torch.zeros(3 * D))
         self.mha_out_proj = nn.Linear(D, D)
-        # kernel-branch weights, folded by fold() (not part of the state_dict)
-        self.register_buffer("w_qkv", None, persistent=False)
-        self.register_buffer("b_qkv", None, persistent=False)
-        self.register_buffer("w_out", None, persistent=False)
 
-    @torch.no_grad()
-    def fold(self):
-        """Fold the q/k/v linears into the MHA in_proj (two chained linears
-        compose): W_eff = Wq @ Win_q, b_eff = bq @ Win_q + bin_q, for the
-        kernel's one (D, 3D) projection. Computed in float64, stored f32."""
+    def folded_qkv(self):
+        """The kernel's one (D, 3D) projection (``policy_net.py:119-130``):
+        the q/k/v linears compose with the MHA in_proj, W_eff = Wq @ Win_q,
+        b_eff = bq @ Win_q + bin_q. Computed in f32 on every forward, under
+        autograd, so gradients reach the linears and the in_proj."""
         D = self.attn_size
-        w_in = self.mha_in_proj_weight.double()
-        b_in = self.mha_in_proj_bias.double()
+        w_in, b_in = self.mha_in_proj_weight, self.mha_in_proj_bias
         ws, bs = [], []
         for i, lin in enumerate((self.q_linear, self.k_linear, self.v_linear)):
             w_slice = w_in[:, i * D:(i + 1) * D]
-            ws.append(lin.weight.double().t() @ w_slice)
-            bs.append(lin.bias.double() @ w_slice + b_in[i * D:(i + 1) * D])
-        self.w_qkv = torch.cat(ws, dim=1).float().contiguous()
-        self.b_qkv = torch.cat(bs).float().contiguous()
-        self.w_out = self.mha_out_proj.weight.t().contiguous()
+            ws.append(lin.weight.t() @ w_slice)
+            bs.append(lin.bias @ w_slice + b_in[i * D:(i + 1) * D])
+        return torch.cat(ws, dim=1), torch.cat(bs)
 
-    def forward(self, inp, attn_mask):
+    def forward(self, inp, attn_mask, use_kernel: bool):
+        """``use_kernel`` picks the kernel branch (K1 forward, K2 backward)
+        or the einsum branch; the parameters are the same."""
         rows, A, _ = inp.shape
         D, nh = self.attn_size, self.num_heads
         hd = D // nh
         x = F.relu(self.embed_1(F.relu(self.embed_0(inp))))
 
-        if self.use_kernel:
-            if self.w_qkv is None:
-                self.fold()
+        if use_kernel:
+            w_qkv, b_qkv = self.folded_qkv()
             return fused_graph_attention(
-                x.contiguous(), attn_mask.contiguous(), self.w_qkv,
-                self.b_qkv, self.w_out, self.mha_out_proj.bias, nh,
+                x.contiguous(), attn_mask.contiguous(), w_qkv, b_qkv,
+                self.mha_out_proj.weight.t(), self.mha_out_proj.bias, nh,
                 compute_dtype=self.kernel_dtype)
 
         w_in, b_in = self.mha_in_proj_weight, self.mha_in_proj_bias
@@ -197,7 +190,7 @@ class SelfAttnMergeSRNN(nn.Module):
         self.robot_linear = nn.Linear(robot_in, 256)
         self.spatial_attn = SpatialEdgeSelfAttn(
             cfg.spatial_edge_dim, net.attn_size, net.num_attn_heads,
-            use_kernel=net.use_pallas_attention, kernel_dtype=net.pallas_dtype)
+            kernel_dtype=net.pallas_dtype)
         self.spatial_linear = nn.Linear(net.attn_size, 256)
         self.attn = EdgeAttentionM(net.attention_size)
         self.humanNodeRNN = EndRNN(net.human_node_rnn_size,
@@ -208,7 +201,8 @@ class SelfAttnMergeSRNN(nn.Module):
         self.actor_0, self.actor_1 = nn.Linear(h, h), nn.Linear(h, h)
         self.critic_linear = nn.Linear(h, 1)
 
-    def forward(self, obs: Dict[str, torch.Tensor], rnn_hxs, masks):
+    def forward(self, obs: Dict[str, torch.Tensor], rnn_hxs, masks,
+                use_kernel: bool):
         cfg = self.cfg
         T, N = masks.shape
         A = cfg.sim.max_human_num
@@ -225,7 +219,7 @@ class SelfAttnMergeSRNN(nn.Module):
             torch.cat([temporal_edges, robot_node], dim=-1)))  # (T, N, 1, 256)
 
         out_sp = F.relu(self.spatial_linear(
-            self.spatial_attn(spatial_edges, attn_mask)))
+            self.spatial_attn(spatial_edges, attn_mask, use_kernel)))
         weighted, _ = self.attn(robot_states.reshape(rows, 1, 256), out_sp,
                                 attn_mask)
         weighted = weighted.reshape(T, N, 1, 256)
@@ -239,7 +233,7 @@ class SelfAttnMergeSRNN(nn.Module):
         return value, hidden_actor, {"human_node_rnn": h_new}
 
 
-def init_hidden(cfg: Config, n_envs: int, device="cpu"):
+def init_hidden(cfg: Config, n_envs: int, device):
     """Fresh recurrent state (``policy_net.py:322-333``). The JAX package's
     edge-RNN slot is left out: this model never reads it."""
     return {"human_node_rnn": torch.zeros(

@@ -1,19 +1,32 @@
-"""Fused graph attention (K1): QKV projection, per-row masked multi-head
-attention and output projection in one kernel.
+"""Fused graph attention: QKV projection, per-row masked multi-head attention
+and output projection (K1), and its backward (K2).
 
 Port of ``crowdnav_prediction_attngraph_tpu/ops/masked_attention.py``:
-``fused_graph_attention`` (:495-515) and its TPU kernel ``_fused_kernel``
-(:175-230) become a hand-written CUDA kernel for Hopper
-(``csrc/fused_graph_attention.cu``), and ``reference_fused_graph_attention``
-(:596-603) becomes :func:`reference_fused_graph_attention`, the plain PyTorch
-version with the same math and the same bf16 rounding points.
+  * ``fused_graph_attention`` (:495-515) with its ``custom_vjp``
+    ``_fused_diffable`` (:261-295) becomes :class:`FusedGraphAttention`, a
+    ``torch.autograd.Function``; :func:`fused_graph_attention` is its
+    ``apply``;
+  * the forward TPU kernel ``_fused_kernel`` (:175-230) becomes a
+    hand-written CUDA kernel for Hopper (``csrc/fused_graph_attention.cu``),
+    and ``reference_fused_graph_attention`` (:596-603) the plain PyTorch
+    version :func:`reference_fused_graph_attention`, with the same math and
+    the same bf16 rounding points;
+  * the backward TPU kernel ``_bwd_kernel`` (:298-411, via
+    ``_fused_backward`` :414-492) becomes ``csrc/fused_graph_attention_bwd.cu``
+    behind :func:`fused_graph_attention_backward`, with the plain version
+    :func:`reference_fused_graph_attention_backward`.
 
-The wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises; it never falls back.
+Gradients are those of the executed forward, in its compute dtype, as the
+JAX docstring of ``_fused_diffable`` says: the backward recomputes q, k, v
+and the softmax from the saved inputs instead of storing the probabilities.
+
+The wrappers run the plain versions only for tensors on the CPU. For CUDA
+tensors they launch the kernel or raise; they never fall back.
 
 An all-masked row (no valid key) is defined to have a zero attention output
-in both versions, so its result is ``b_out``; valid rows never read it.
-Real callers never send one (the policy's mask keeps detected >= 1).
+in both versions, so its result is ``b_out`` and its dx, dq, dk and dv are 0;
+valid rows never read it. Real callers never send one (the policy's mask
+keeps detected >= 1).
 """
 
 from __future__ import annotations
@@ -26,6 +39,7 @@ import torch
 from . import _build
 
 KERNEL = "fused_graph_attention"
+KERNEL_BWD = "fused_graph_attention_bwd"
 
 
 def _rounded(t: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -63,20 +77,73 @@ def reference_fused_graph_attention(x, mask, w_qkv, b_qkv, w_out, b_out,
     return out @ _rounded(w_out, cd) + b_out
 
 
-def _check(x, mask, w_qkv, b_qkv, w_out, b_out, num_heads, compute_dtype):
+def reference_fused_graph_attention_backward(
+        x, mask, w_qkv, b_qkv, w_out, g, num_heads: int,
+        compute_dtype: torch.dtype = torch.float32):
+    """Plain PyTorch K2: the gradients of K1's output with respect to
+    (x, w_qkv, b_qkv, w_out, b_out) for the output cotangent ``g``
+    (rows, A, D) f32. Returns (dx, dw_qkv, db_qkv, dw_out, db_out).
+
+    At bf16 it rounds where ``_bwd_kernel`` casts: x, the weights and g; the
+    recomputed q, k, v (:330-333); q x scale (:375); p (:383); dattn and ds
+    (:386, :391); the attention output (:396) and dqkv before the dx and dW
+    products (:404-407). The bias gradients sum unrounded f32 values. In f32
+    this is autograd through :func:`reference_fused_graph_attention`."""
+    rows, A, D = x.shape
+    H = num_heads
+    hd = D // H
+    cd = compute_dtype
+    scale = 1.0 / math.sqrt(hd)
+    scale_c = torch.tensor(scale, dtype=cd).item()
+
+    def heads(t):
+        return t.reshape(rows, A, H, hd)
+
+    xc, gc = _rounded(x, cd), _rounded(g, cd)
+    wq, wo = _rounded(w_qkv, cd), _rounded(w_out, cd)
+    qkv = _rounded(xc @ wq + b_qkv, cd)
+    qh = heads(_rounded(qkv[..., :D] * scale_c, cd))
+    kh = heads(qkv[..., D:2 * D])
+    vh = heads(qkv[..., 2 * D:])
+    logits = torch.einsum("rqhd,rkhd->rhqk", qh, kh)
+    logits = logits.masked_fill(~mask[:, None, None, :], -math.inf)
+    p = torch.softmax(logits, dim=-1)
+    p = torch.where(mask.any(dim=-1)[:, None, None, None], p,
+                    torch.zeros_like(p))
+    pc = _rounded(p, cd)
+    attn = _rounded(torch.einsum("rhqk,rkhd->rqhd", pc, vh)
+                    .reshape(rows, A, D), cd)
+    da = heads(_rounded(gc @ wo.t(), cd))
+    dv = torch.einsum("rhqk,rqhd->rkhd", pc, da)
+    dp = torch.einsum("rqhd,rkhd->rhqk", da, vh)
+    ds = _rounded(p * (dp - (dp * p).sum(dim=-1, keepdim=True)), cd)
+    dq = torch.einsum("rhqk,rkhd->rqhd", ds, kh) * scale
+    dk = torch.einsum("rhqk,rqhd->rkhd", ds, qh)
+    dqkv = torch.cat([t.reshape(rows, A, D) for t in (dq, dk, dv)], dim=-1)
+    dqkv_c = _rounded(dqkv, cd)
+    dx = dqkv_c @ wq.t()
+    dw_qkv = xc.reshape(-1, D).t() @ dqkv_c.reshape(-1, 3 * D)
+    db_qkv = dqkv.reshape(-1, 3 * D).sum(dim=0)
+    dw_out = attn.reshape(-1, D).t() @ gc.reshape(-1, D)
+    db_out = g.reshape(-1, D).sum(dim=0)
+    return dx, dw_qkv, db_qkv, dw_out, db_out
+
+
+def _check(x, mask, num_heads, compute_dtype, **tensors):
+    """Shapes, devices and dtypes of K1's and K2's inputs: ``tensors`` are
+    named as in the signatures (w_qkv, b_qkv, w_out, b_out, g)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (rows, A, D), got {tuple(x.shape)}")
     rows, A, D = x.shape
-    shapes = {"mask": (mask, (rows, A)), "w_qkv": (w_qkv, (D, 3 * D)),
-              "b_qkv": (b_qkv, (3 * D,)), "w_out": (w_out, (D, D)),
-              "b_out": (b_out, (D,))}
-    for name, (t, shape) in shapes.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    shapes = {"mask": (rows, A), "w_qkv": (D, 3 * D), "b_qkv": (3 * D,),
+              "w_out": (D, D), "b_out": (D,), "g": (rows, A, D)}
+    for name, t in (("mask", mask), *tensors.items()):
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} must be {shapes[name]}, "
+                             f"got {tuple(t.shape)}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    for name, t in (("x", x), ("w_qkv", w_qkv), ("b_qkv", b_qkv),
-                    ("w_out", w_out), ("b_out", b_out)):
+    for name, t in (("x", x), *tensors.items()):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
     if mask.dtype != torch.bool:
@@ -88,30 +155,73 @@ def _check(x, mask, w_qkv, b_qkv, w_out, b_out, num_heads, compute_dtype):
                         f"got {compute_dtype}")
 
 
-def fused_graph_attention(x, mask, w_qkv, b_qkv, w_out, b_out,
-                          num_heads: int,
-                          compute_dtype: torch.dtype = torch.bfloat16):
-    """K1 forward: (rows, A, D) -> (rows, A, D) float32.
-
-    CUDA tensors launch the Hopper kernel (A <= 32, D / num_heads <= 64,
-    D <= 512; all contiguous); CPU tensors run
-    :func:`reference_fused_graph_attention`."""
-    _check(x, mask, w_qkv, b_qkv, w_out, b_out, num_heads, compute_dtype)
-    if x.device.type == "cpu":
-        return reference_fused_graph_attention(
-            x, mask, w_qkv, b_qkv, w_out, b_out, num_heads, compute_dtype)
+def _check_kernel(x, num_heads, tensors):
+    """What the CUDA kernels take: A <= 32, head dim <= 64, D <= 512, the
+    ``tensors`` given contiguous (w_out is laid out by the wrappers)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     rows, A, D = x.shape
     if not 1 <= A <= 32 or D // num_heads > 64 or D > 512:
         raise ValueError(f"the kernel takes A <= 32, head dim <= 64, D <= 512;"
                          f" got A={A}, D={D}, heads={num_heads}")
-    for name, t in (("x", x), ("mask", mask), ("w_qkv", w_qkv),
-                    ("b_qkv", b_qkv), ("w_out", w_out), ("b_out", b_out)):
+    for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+class FusedGraphAttention(torch.autograd.Function):
+    """K1 forward, K2 backward (``_fused_diffable`` :261-295). Saves the
+    inputs, as ``_fused_diffable_fwd`` does, and recomputes in the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, mask, w_qkv, b_qkv, w_out, b_out, num_heads,
+                compute_dtype):
+        ctx.save_for_backward(x, mask, w_qkv, b_qkv, w_out)
+        ctx.num_heads, ctx.compute_dtype = num_heads, compute_dtype
+        if x.device.type == "cpu":
+            return reference_fused_graph_attention(
+                x, mask, w_qkv, b_qkv, w_out, b_out, num_heads, compute_dtype)
+        return _launch_forward(x, mask, w_qkv, b_qkv, w_out, b_out,
+                               num_heads, compute_dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, mask, w_qkv, b_qkv, w_out = ctx.saved_tensors
+        dx, dw_qkv, db_qkv, dw_out, db_out = fused_graph_attention_backward(
+            x, mask, w_qkv, b_qkv, w_out, g.contiguous(), ctx.num_heads,
+            ctx.compute_dtype)
+        return dx, None, dw_qkv, db_qkv, dw_out, db_out, None, None
+
+
+def fused_graph_attention(x, mask, w_qkv, b_qkv, w_out, b_out,
+                          num_heads: int,
+                          compute_dtype: torch.dtype = torch.bfloat16):
+    """K1 forward: (rows, A, D) -> (rows, A, D) float32, differentiable in
+    x and the weights through :class:`FusedGraphAttention`.
+
+    CUDA tensors launch the Hopper kernels (A <= 32, D / num_heads <= 64,
+    D <= 512; all contiguous but w_out, which may be any (D, D) view, such
+    as an nn.Linear weight's ``.t()``); CPU tensors run the plain
+    versions."""
+    _check(x, mask, num_heads, compute_dtype, w_qkv=w_qkv, b_qkv=b_qkv,
+           w_out=w_out, b_out=b_out)
+    return FusedGraphAttention.apply(x, mask, w_qkv, b_qkv, w_out, b_out,
+                                     num_heads, compute_dtype)
+
+
+fused_graph_attention.launches = 0
+
+
+def _launch_forward(x, mask, w_qkv, b_qkv, w_out, b_out, num_heads,
+                    compute_dtype):
+    _check_kernel(x, num_heads, {"x": x, "mask": mask, "w_qkv": w_qkv,
+                                 "b_qkv": b_qkv, "b_out": b_out})
+    rows, A, D = x.shape
     out = torch.empty_like(x)
-    fn = _kernel_fn()
+    w_out = w_out.contiguous()          # the kernel reads (in, out) rows
+    fn = _kernel_fn(KERNEL, "fused_graph_attention_forward", 7)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), mask.data_ptr(), w_qkv.data_ptr(),
@@ -125,13 +235,58 @@ def fused_graph_attention(x, mask, w_qkv, b_qkv, w_out, b_out,
     return out
 
 
-fused_graph_attention.launches = 0
+def fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
+                                   num_heads: int,
+                                   compute_dtype: torch.dtype = torch.bfloat16):
+    """K2: (dx, dw_qkv, db_qkv, dw_out, db_out) of K1 for the output
+    cotangent ``g``. CUDA tensors launch the Hopper kernel (K1's limits);
+    CPU tensors run :func:`reference_fused_graph_attention_backward`."""
+    _check(x, mask, num_heads, compute_dtype, w_qkv=w_qkv, b_qkv=b_qkv,
+           w_out=w_out, g=g)
+    if x.device.type == "cpu":
+        return reference_fused_graph_attention_backward(
+            x, mask, w_qkv, b_qkv, w_out, g, num_heads, compute_dtype)
+    _check_kernel(x, num_heads, {"x": x, "mask": mask, "w_qkv": w_qkv,
+                                 "b_qkv": b_qkv, "g": g})
+    rows, A, D = x.shape
+
+    def f32(*shape):
+        return torch.empty(shape, device=x.device, dtype=torch.float32)
+
+    dx = torch.empty_like(x)
+    dw_qkv, db_qkv, dw_out, db_out = f32(D, 3 * D), f32(3 * D), f32(D, D), f32(D)
+    # scratch: the f32 dq|dk|dv and the rounded attention output per token,
+    # read back by the weight-gradient pass
+    dqkv, attn = f32(rows * A, 3 * D), f32(rows * A, D)
+    # the (out, in) layouts, so the kernel's dx and dattn products read the
+    # weights along contiguous rows; w_out^T is no copy when w_out is the
+    # transposed view of an nn.Linear weight, as the policy passes it
+    w_qkv_t, w_out_t = w_qkv.t().contiguous(), w_out.t().contiguous()
+    fn = _kernel_fn(KERNEL_BWD, "fused_graph_attention_backward", 14)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), mask.data_ptr(), g.data_ptr(), w_qkv.data_ptr(),
+                w_qkv_t.data_ptr(), b_qkv.data_ptr(), w_out_t.data_ptr(),
+                dx.data_ptr(), dqkv.data_ptr(), attn.data_ptr(),
+                dw_qkv.data_ptr(), db_qkv.data_ptr(), dw_out.data_ptr(),
+                db_out.data_ptr(), rows, A, D, num_heads,
+                int(compute_dtype == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_graph_attention_backward kernel launch "
+                           f"failed: cudaError {rc}")
+    fused_graph_attention_backward.launches += 1
+    return dx, dw_qkv, db_qkv, dw_out, db_out
 
 
-def _kernel_fn():
-    fn = _build.load(KERNEL).fused_graph_attention_forward
+fused_graph_attention_backward.launches = 0
+
+
+def _kernel_fn(name: str, symbol: str, n_pointers: int):
+    """The C entry ``symbol`` of ``csrc/<name>.cu``: ``n_pointers`` pointers,
+    then (rows, A, D, num_heads, bf16) and the stream."""
+    fn = getattr(_build.load(name), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn

@@ -1,0 +1,244 @@
+"""Training CLI (JAX package ``train.py``; reference train.py:23-244).
+
+Runs PPO iterations in a loop, keeps the rolling episode-reward windows (the
+reference's Monitor deque), writes ``progress.csv`` with the JAX package's
+columns, ``eval_history.csv`` and ``best.json`` from in-loop evaluations,
+``config.json``, and checkpoints under ``checkpoints/`` (the optimizer
+state included, plus a params-only ``.npz`` that the port's ``test`` CLI
+loads with ``--params``). The flagship recipe on the card:
+
+  python -m crowdnav_prediction_attngraph_tpu_torch.train \\
+      --output-dir trained_models/my_model --num-processes 64 \\
+      --use-linear-lr-decay
+
+Runs on ``cuda`` unless ``--device cpu`` is given. The JAX CLI's multi-host
+and tensor-parallel flags are not ported; ``--gst-params`` (a ``.npz``
+export, the committed in-repo predictor by default) takes the place of
+``--gst-model-dir``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from .algo import evaluation
+from .algo import ppo as ppo_mod
+from .config import Config, gst_config, pred_config, varnum_config
+from .models.gst.predictor import load_gst
+from .models.policy import load_policy
+from .test import DEFAULT_GST_PARAMS
+from .utils import checkpoint as ckpt_util
+from .utils.device import resolve_device
+
+
+def build_config(args) -> Config:
+    """The run's config from the CLI flags (JAX ``train.py:43-85``)."""
+    if args.env_name == "CrowdSimVarNum":
+        cfg = varnum_config(human_num=args.human_num,
+                            human_num_range=args.human_num_range)
+    elif args.env_name == "CrowdSimPred":
+        cfg = pred_config(predict_method=args.predict_method,
+                          human_num=args.human_num,
+                          human_num_range=args.human_num_range)
+    elif args.env_name == "CrowdSimPredRealGST":
+        cfg = gst_config(human_num=args.human_num,
+                         human_num_range=args.human_num_range)
+    else:
+        raise ValueError(args.env_name)
+    cfg = cfg.replace(ppo=dataclasses.replace(
+        cfg.ppo, num_processes=args.num_processes, num_steps=args.num_steps,
+        num_env_steps=args.num_env_steps, lr=args.lr, seed=args.seed,
+        num_mini_batch=args.num_mini_batch, ppo_epoch=args.ppo_epoch,
+        entropy_coef=args.entropy_coef,
+        use_linear_lr_decay=args.use_linear_lr_decay))
+    if not args.randomize_attributes:
+        cfg = cfg.replace(env=dataclasses.replace(
+            cfg.env, randomize_attributes=False))
+    if args.kinematics:
+        cfg = cfg.replace(action_space=dataclasses.replace(
+            cfg.action_space, kinematics=args.kinematics))
+    if args.robot_v_pref:
+        cfg = cfg.replace(robot=dataclasses.replace(
+            cfg.robot, v_pref=args.robot_v_pref))
+    if args.gst_matmul_dtype:
+        cfg = cfg.replace(pred=dataclasses.replace(
+            cfg.pred, matmul_dtype=args.gst_matmul_dtype))
+    return cfg
+
+
+def _parser():
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--output-dir", default="trained_models/my_model")
+    p.add_argument("--env-name", default="CrowdSimPredRealGST")
+    p.add_argument("--predict-method", default="const_vel")
+    p.add_argument("--human-num", type=int, default=20)
+    p.add_argument("--human-num-range", type=int, default=0)
+    p.add_argument("--num-processes", type=int, default=16)
+    p.add_argument("--num-steps", type=int, default=30)
+    p.add_argument("--num-env-steps", type=int, default=20_000_000)
+    p.add_argument("--lr", type=float, default=4e-5)
+    p.add_argument("--num-mini-batch", type=int, default=2)
+    p.add_argument("--ppo-epoch", type=int, default=5)
+    p.add_argument("--entropy-coef", type=float, default=0.0)
+    p.add_argument("--use-linear-lr-decay", action="store_true",
+                   help="linear lr schedule over every Adam step")
+    p.add_argument("--seed", type=int, default=425)
+    p.add_argument("--log-interval", type=int, default=20)
+    p.add_argument("--save-interval", type=int, default=200)
+    p.add_argument("--gst-params", default=DEFAULT_GST_PARAMS,
+                   help="GST predictor weights (.npz export)")
+    p.add_argument("--gst-matmul-dtype", default="bf16",
+                   choices=["f32", "bf16"],
+                   help="GST predictor inference matmul dtype")
+    p.add_argument("--no-randomize-attributes", dest="randomize_attributes",
+                   action="store_false",
+                   help="fixed human v_pref/radius")
+    p.add_argument("--kinematics", default=None,
+                   choices=["holonomic", "unicycle"],
+                   help="robot action space (unicycle is not ported yet)")
+    p.add_argument("--robot-v-pref", type=float, default=None,
+                   help="robot max speed")
+    p.add_argument("--spin-warmup-steps", type=int, default=0,
+                   help="unicycle spin-penalty warmup (not ported yet)")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint directory of a port run to resume from")
+    p.add_argument("--init-params-from", default=None,
+                   help="warm-start only the policy params (fresh "
+                        "optimizer, envs and update counter) from a params "
+                        ".npz, or from a checkpoint directory")
+    p.add_argument("--init-params-step", type=int, default=None,
+                   help="checkpoint for a directory --init-params-from "
+                        "(default: the latest)")
+    p.add_argument("--eval-interval", type=int, default=0,
+                   help="run a deterministic val evaluation every N "
+                        "updates (0 = off)")
+    p.add_argument("--eval-size", type=int, default=500,
+                   help="episodes per in-loop evaluation")
+    p.add_argument("--device", default="cuda")
+    return p
+
+
+def _warm_start_path(path: str, step) -> str:
+    if os.path.isdir(path):
+        step = ckpt_util.latest_step(path) if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {path}")
+        path = os.path.join(path, f"{step:05d}.npz")
+    return path
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    if args.kinematics == "unicycle" or args.spin_warmup_steps:
+        raise NotImplementedError(
+            "not ported yet: the unicycle robot and its spin-penalty warmup")
+    device = resolve_device(args.device)
+    cfg = build_config(args)
+    os.makedirs(args.output_dir, exist_ok=True)
+    with open(os.path.join(args.output_dir, "config.json"), "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+
+    gst = (load_gst(cfg.pred, args.gst_params, device)
+           if cfg.sim.predict_method == "inferred" else None)
+    model = None
+    if args.init_params_from and not args.resume:
+        path = _warm_start_path(args.init_params_from, args.init_params_step)
+        model = load_policy(cfg, path, device)
+        print(f"warm-started params from {path}")
+    ts = ppo_mod.init_train_state(cfg, gst, device, model)
+    start_update = 0
+    if args.resume:
+        ts, start_update = ckpt_util.restore_train_state(args.resume, ts)
+    num_updates = int(cfg.ppo.num_env_steps) // cfg.ppo.num_steps \
+        // cfg.ppo.num_processes
+    name = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"[train] device {name}; updates {start_update} to "
+          f"{num_updates - 1}", flush=True)
+    ckpt_dir = os.path.join(args.output_dir, "checkpoints")
+    best_success = -1.0
+    episode_rewards = collections.deque(maxlen=100)
+    episode_rewards_env = collections.deque(maxlen=100)  # reference Monitor
+    start = time.time()
+    csv_path = os.path.join(args.output_dir, "progress.csv")
+    # metrics stay on the device until a log or eval boundary
+    pending = []
+
+    def flush_pending():
+        for m in pending:
+            for key, window in (("done_returns", episode_rewards),
+                                ("done_returns_env", episode_rewards_env)):
+                rets = m[key].cpu().numpy()
+                window.extend(rets[~np.isnan(rets)].tolist())
+        pending.clear()
+
+    for j in range(start_update, num_updates):
+        ts, metrics = ppo_mod.train_iteration(cfg, ts, gst)
+        pending.append(metrics)
+
+        if args.eval_interval and j % args.eval_interval == 0 and j > 0:
+            flush_pending()
+            r = evaluation.evaluate(cfg, ts.model, gst,
+                                    test_size=args.eval_size, phase="val",
+                                    device=device, log=lambda m: None)
+            print(f"[eval @ update {j}] " + evaluation.format_results(r))
+            with open(os.path.join(args.output_dir, "eval_history.csv"),
+                      "a") as f:
+                f.write(f"{j},{r['success_rate']},{r['collision_rate']},"
+                        f"{r['timeout_rate']},{r['nav_time']},"
+                        f"{r['path_length']},{r['intrusion_ratio']},"
+                        f"{r['min_intrusion_dist']}\n")
+            # every eval point is checkpointed, so the best one can be
+            # recovered
+            ckpt_util.save_train_state(ckpt_dir, ts, j)
+            if r["success_rate"] >= best_success:
+                best_success = r["success_rate"]
+                with open(os.path.join(args.output_dir, "best.json"),
+                          "w") as f:
+                    json.dump({"update": j, **{k: v for k, v in r.items()
+                                               if not k.endswith("_cases")}},
+                              f, indent=2)
+
+        if j % args.save_interval == 0 or j == num_updates - 1:
+            ckpt_util.save_train_state(ckpt_dir, ts, j)
+
+        if j % args.log_interval == 0:
+            flush_pending()
+        if j % args.log_interval == 0 and len(episode_rewards) > 1:
+            total_num_steps = (j + 1) * cfg.ppo.num_processes \
+                * cfg.ppo.num_steps
+            fps = int(total_num_steps / (time.time() - start))
+            lr_now = cfg.ppo.lr * (max(0.0, 1.0 - j / num_updates)
+                                   if cfg.ppo.use_linear_lr_decay else 1.0)
+            row = {
+                "misc/nupdates": j,
+                "misc/total_timesteps": total_num_steps,
+                "misc/lr": lr_now,
+                "fps": fps,
+                "eprewmean": float(np.mean(episode_rewards)),
+                "eprewmean_env": float(np.mean(episode_rewards_env)),
+                "loss/policy_entropy": float(metrics["dist_entropy"]),
+                "loss/policy_loss": float(metrics["action_loss"]),
+                "loss/value_loss": float(metrics["value_loss"]),
+            }
+            print(f"Updates {j}, num timesteps {total_num_steps}, FPS {fps} "
+                  f"eprewmean {row['eprewmean']:.2f} "
+                  f"value_loss {row['loss/value_loss']:.3f}", flush=True)
+            header = not os.path.exists(csv_path)
+            with open(csv_path, "a") as f:
+                if header:
+                    f.write(",".join(row.keys()) + "\n")
+                f.write(",".join(str(v) for v in row.values()) + "\n")
+    return ts
+
+
+if __name__ == "__main__":
+    main()

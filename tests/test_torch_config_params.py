@@ -77,11 +77,11 @@ def test_round_trip_through_loaded_models():
     cfg = tconfig.config_from_snapshot(os.path.join(MODEL_DIR, "config.json"))
     pol_tree = load_npz(POLICY_NPZ)["params"]
     _assert_trees_equal(
-        state_dict_to_tree(load_policy(cfg, POLICY_NPZ).state_dict()),
+        state_dict_to_tree(load_policy(cfg, POLICY_NPZ, "cpu").state_dict()),
         pol_tree)
     gst_tree = load_npz(GST_NPZ)["params"]
     _assert_trees_equal(
-        state_dict_to_tree(load_gst(cfg.pred, GST_NPZ).state_dict()), gst_tree)
+        state_dict_to_tree(load_gst(cfg.pred, GST_NPZ, "cpu").state_dict()), gst_tree)
 
 
 def _export_tool():

@@ -76,7 +76,8 @@ def test_st_model_matches_jax(tree, matmul_dtype, atol):
         jnp.asarray(attn), jnp.asarray(lm), 0.03, True, False)
 
     model = load_gst(dataclasses.replace(PredConfig(),
-                                         matmul_dtype=matmul_dtype), tree)
+                                         matmul_dtype=matmul_dtype), tree,
+                     "cpu")
     with torch.no_grad():
         got = model(torch.from_numpy(v_obs), torch.from_numpy(attn),
                     torch.from_numpy(lm))
@@ -95,7 +96,7 @@ def test_predictor_wrapper_matches_jax(tree):
                                                        t, m)))
     out_j, mask_j = pred(jnp.asarray(pos), jnp.asarray(mask))
 
-    model = load_gst(PredConfig(), tree)
+    model = load_gst(PredConfig(), tree, "cpu")
     out, out_mask = gst_predict(model, torch.from_numpy(pos),
                                 torch.from_numpy(mask))
     np.testing.assert_allclose(out.numpy(), np.asarray(out_j), atol=5e-4)

@@ -15,6 +15,11 @@ PROBE = """
 import json, sys
 import crowdnav_prediction_attngraph_tpu_torch
 import crowdnav_prediction_attngraph_tpu_torch.test
+import crowdnav_prediction_attngraph_tpu_torch.train
+import crowdnav_prediction_attngraph_tpu_torch.algo.ppo
+import crowdnav_prediction_attngraph_tpu_torch.algo.gae
+import crowdnav_prediction_attngraph_tpu_torch.env.vector
+import crowdnav_prediction_attngraph_tpu_torch.utils.checkpoint
 import crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")

@@ -10,6 +10,12 @@ K1 tolerances: f32 atol 3e-4 (the JAX kernel's own bound,
 tests/test_pallas_attention.py:49); bf16 atol 3e-2 at unit-scale inputs
 (both versions round at the same points, sums are ordered differently, so a
 value may land one bf16 rounding apart); the all-masked row is exact.
+
+K2 tolerances: f32 atol 5e-3 / rtol 1e-3 (the JAX backward kernel's bound,
+tests/test_pallas_attention.py:245-246); bf16 max abs error <= 1e-2 x the
+largest entry of each gradient (tests/test_torch_masked_attention.py says
+why); an all-masked row's dx is exactly 0. Two runs give the same bits:
+the weight gradients are reduced in a fixed order, without atomics.
 """
 
 import math
@@ -18,7 +24,8 @@ import pytest
 import torch
 
 from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
-    fused_graph_attention, reference_fused_graph_attention)
+    fused_graph_attention, fused_graph_attention_backward,
+    reference_fused_graph_attention, reference_fused_graph_attention_backward)
 
 A, D, HEADS = 20, 512, 8
 
@@ -44,7 +51,8 @@ def k1_inputs(rows, a, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,a", [(100, 20), (32, 20), (7, 32), (3, 5)])
+@pytest.mark.parametrize("rows,a", [(100, 20), (64, 20), (32, 20), (7, 32),
+                                    (3, 5)])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 3e-4),
                                         (torch.bfloat16, 3e-2)])
 def test_k1_matches_plain(cuda_device, rows, a, dtype, atol):
@@ -80,3 +88,94 @@ def test_k1_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         fused_graph_attention(args[0].transpose(0, 1).contiguous()
                               .transpose(0, 1), *args[1:], HEADS)
+
+
+def k2_inputs(rows, a, seed, device):
+    """K1's inputs with row 1 all-masked, and a cotangent g."""
+    x, mask, w_qkv, b_qkv, w_out, _ = k1_inputs(rows, a, seed, device)
+    mask[min(1, rows - 1)] = False
+    g = torch.randn(rows, a, D, generator=torch.Generator().manual_seed(
+        seed + 1)).to(device)
+    return [x, mask, w_qkv, b_qkv, w_out, g]
+
+
+def assert_k2_close(got, expect, dtype):
+    for name, t, e in zip(("dx", "dw_qkv", "db_qkv", "dw_out", "db_out"),
+                          got, expect):
+        if dtype == torch.float32:
+            torch.testing.assert_close(t, e, rtol=1e-3, atol=5e-3, msg=name)
+        else:
+            err = (t - e).abs().max().item()
+            assert err <= 1e-2 * e.abs().max().item(), (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,a", [(100, 20), (7, 32), (3, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_matches_plain(cuda_device, rows, a, dtype):
+    args = k2_inputs(rows, a, rows + a, cuda_device)
+    before = fused_graph_attention_backward.launches
+    got = fused_graph_attention_backward(*args, HEADS, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert fused_graph_attention_backward.launches == before + 1
+    expect = reference_fused_graph_attention_backward(*args, HEADS,
+                                                      compute_dtype=dtype)
+    assert_k2_close(got, expect, dtype)
+    assert torch.count_nonzero(got[0][1]) == 0
+    again = fused_graph_attention_backward(*args, HEADS, compute_dtype=dtype)
+    for t, u in zip(got, again):
+        assert torch.equal(t, u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_function_launches_k1_and_k2(cuda_device, dtype):
+    x, mask, w_qkv, b_qkv, w_out, b_out = k1_inputs(40, A, 9, cuda_device)
+    leaves = [t.clone().requires_grad_(True)
+              for t in (x, w_qkv, b_qkv, w_out, b_out)]
+    before = (fused_graph_attention.launches,
+              fused_graph_attention_backward.launches)
+    out = fused_graph_attention(leaves[0], mask, *leaves[1:], HEADS,
+                                compute_dtype=dtype)
+    g = torch.randn_like(out)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert (fused_graph_attention.launches,
+            fused_graph_attention_backward.launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    expect = reference_fused_graph_attention_backward(
+        x, mask, w_qkv, b_qkv, w_out, g, HEADS, compute_dtype=dtype)
+    assert_k2_close(got, expect, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w_out_as_a_linear_weight_view(cuda_device, dtype):
+    """The policy passes nn.Linear's (out, in) weight as its ``.t()`` view:
+    K1 and K2 give the same bits as with a contiguous (in, out) copy."""
+    x, mask, w_qkv, b_qkv, w_out, b_out = k1_inputs(16, A, 5, cuda_device)
+    view = w_out.t().contiguous().t()
+    assert not view.is_contiguous()
+    assert torch.equal(
+        fused_graph_attention(x, mask, w_qkv, b_qkv, view, b_out, HEADS,
+                              compute_dtype=dtype),
+        fused_graph_attention(x, mask, w_qkv, b_qkv, w_out, b_out, HEADS,
+                              compute_dtype=dtype))
+    g = torch.randn_like(x)
+    for t, u in zip(
+            fused_graph_attention_backward(x, mask, w_qkv, b_qkv, view, g,
+                                           HEADS, compute_dtype=dtype),
+            fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
+                                           HEADS, compute_dtype=dtype)):
+        assert torch.equal(t, u)
+
+
+@pytest.mark.cuda
+def test_k2_rejects_what_it_does_not_take(cuda_device):
+    args = k2_inputs(2, 33, 0, cuda_device)
+    with pytest.raises(ValueError):
+        fused_graph_attention_backward(*args, HEADS)
+    args = k2_inputs(2, A, 0, cuda_device)
+    with pytest.raises(ValueError):
+        fused_graph_attention_backward(*args[:5], args[5].transpose(0, 1)
+                                       .contiguous().transpose(0, 1), HEADS)

@@ -1,5 +1,6 @@
-"""K1 (fused graph attention): the port's plain version against the JAX
-package, and the Hopper kernel against the plain version on the card.
+"""K1 (fused graph attention) and K2 (its backward): the port's plain
+versions against the JAX package; the Hopper kernels are held against the
+plain versions on the card by tests/test_torch_kernels_cuda.py.
 
 * plain K1 vs the JAX XLA reference, f32: atol 1e-5 (same math, float32
   sums in another order);
@@ -8,11 +9,24 @@ package, and the Hopper kernel against the plain version on the card.
 * plain K1 in bf16 vs the JAX Pallas kernel in bf16 (interpret mode), same
   rounding points: atol 2e-2 (bf16 has 8 mantissa bits; sums are ordered
   differently, so a rounding may land one bf16 ulp apart);
-* an all-masked row outputs b_out and leaves every other row unchanged.
+* an all-masked row outputs b_out and leaves every other row unchanged;
+* plain K2 vs the JAX backward kernel ``_fused_backward`` in interpret
+  mode at the shapes of tests/test_pallas_attention.py:220-246, f32: all
+  five gradients to atol 5e-3 / rtol 1e-3, that test's own bound;
+* plain K2 in bf16 vs the same kernel run in bf16 (interpret mode runs it
+  on the CPU), same rounding points: max abs error <= 1e-2 x the largest
+  entry of each gradient (bf16 keeps 8 significant bits, 3.9e-3 relative
+  per ulp; sums in another order move a rounding by one ulp, and a dqkv or
+  dS entry one ulp off feeds every product after it);
+* the autograd.Function on the CPU: its backward (plain K2) equals
+  autograd through the plain K1 in f32 to 1e-5 (same math, sums in another
+  order), with an all-masked row, whose dx must be exactly 0. The JAX
+  kernel is not asked about all-masked rows: it spreads such a row's
+  attention over its whole packing strip, other rows' tokens included
+  (its callers never send one), where the port defines a zero attention
+  output.
 
-The kernel itself is held against the plain version on the card by
-tests/test_torch_kernels_cuda.py (no jax there: the card's machine has
-none).
+The kernels themselves run only on the card (no jax there).
 """
 
 import numpy as np
@@ -22,10 +36,14 @@ import jax.numpy as jnp
 import torch
 
 from crowdnav_prediction_attngraph_tpu.ops.masked_attention import (
+    _fused_backward as j_fused_backward,
     fused_graph_attention as j_fused_graph_attention,
     reference_fused_graph_attention as j_reference)
 from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
-    fused_graph_attention, reference_fused_graph_attention)
+    fused_graph_attention, fused_graph_attention_backward,
+    reference_fused_graph_attention, reference_fused_graph_attention_backward)
+
+GRADS = ("dx", "dw_qkv", "db_qkv", "dw_out", "db_out")
 
 
 def inputs(rows, A, D=512, seed=0):
@@ -94,3 +112,59 @@ def isolation(fn, device, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_all_masked_row_isolation_plain(dtype):
     isolation(reference_fused_graph_attention, "cpu", dtype)
+
+
+def cotangent(rows, A, D=512, seed=0):
+    return np.random.RandomState(seed + 100).randn(rows, A, D).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("rows,A,r_blk", [(13, 20, None), (33, 20, 16)])
+@pytest.mark.parametrize("dtype,jdtype", [(torch.float32, "f32"),
+                                          (torch.bfloat16, "bf16")])
+def test_plain_backward_matches_jax_kernel_interpret(rows, A, r_blk, dtype,
+                                                     jdtype):
+    x, mask, w_qkv, b_qkv, w_out, b_out = inputs(rows, A, seed=rows)
+    g = cotangent(rows, A, seed=rows)
+    expect = j_fused_backward(
+        *[jnp.asarray(a) for a in (x, mask, w_qkv, b_qkv, w_out, b_out, g)],
+        8, r_blk, jdtype, None, True)
+    got = reference_fused_graph_attention_backward(
+        *torch_args((x, mask, w_qkv, b_qkv, w_out, g)), 8, dtype)
+    for name, t, e in zip(GRADS, got, expect):
+        e = np.asarray(e)
+        if dtype == torch.float32:
+            np.testing.assert_allclose(t.numpy(), e, atol=5e-3, rtol=1e-3,
+                                       err_msg=name)
+        else:
+            assert np.abs(t.numpy() - e).max() <= 1e-2 * np.abs(e).max(), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_backward_is_plain_k2_and_autograd_f32(dtype):
+    x, mask, w_qkv, b_qkv, w_out, b_out = inputs(8, 20, seed=4)
+    mask[3] = False                        # one all-masked row
+    args = torch_args((x, mask, w_qkv, b_qkv, w_out, b_out))
+    g = torch.from_numpy(cotangent(8, 20, seed=4))
+    leaves = [args[i].clone().requires_grad_(True) for i in (0, 2, 3, 4, 5)]
+    before = (fused_graph_attention.launches,
+              fused_graph_attention_backward.launches)
+    out = fused_graph_attention(leaves[0], args[1], *leaves[1:], 8,
+                                compute_dtype=dtype)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, g)
+    assert (fused_graph_attention.launches,
+            fused_graph_attention_backward.launches) == before
+    plain = reference_fused_graph_attention_backward(
+        *args[:5], g, 8, dtype)
+    for name, t, e in zip(GRADS, got, plain):
+        torch.testing.assert_close(t, e, rtol=0, atol=0, msg=name)
+    assert torch.count_nonzero(got[0][3]) == 0
+    assert torch.isfinite(torch.cat([t.flatten() for t in got])).all()
+    if dtype == torch.float32:
+        ref_leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+        ref_out = reference_fused_graph_attention(
+            ref_leaves[0], args[1], *ref_leaves[1:], 8)
+        ref = torch.autograd.grad(ref_out, ref_leaves, g)
+        for name, t, e in zip(GRADS, got, ref):
+            torch.testing.assert_close(t, e, rtol=1e-5, atol=1e-5, msg=name)

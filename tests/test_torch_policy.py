@@ -74,11 +74,11 @@ def _t(d):
 def test_recurrent_act_with_done_reset(params, use_kernel, atol):
     """Three act() steps; envs 1 and 3 hit done before the third."""
     jc, tc = _cfgs(use_kernel)
-    model = t_policy.load_policy(tc, params)
+    model = t_policy.load_policy(tc, params, "cpu")
     j_act = jax.jit(lambda o, h, m: j_policy.act(
         jc, params, o, h, m, jax.random.key(0), deterministic=True))
     rng = np.random.RandomState(3)
-    jh, th = j_init_hidden(jc, N), init_hidden(tc, N)
+    jh, th = j_init_hidden(jc, N), init_hidden(tc, N, "cpu")
     for t in range(T):
         obs = _obs(rng, (N,))
         masks = np.ones(N, np.float32)
@@ -98,7 +98,7 @@ def test_recurrent_act_with_done_reset(params, use_kernel, atol):
 def test_time_major_forward_matches_jax(params):
     """The [T, N] forward (one GRU scan over T with a done mask)."""
     jc, tc = _cfgs()
-    model = t_policy.load_policy(tc, params)
+    model = t_policy.load_policy(tc, params, "cpu")
     rng = np.random.RandomState(4)
     obs = _obs(rng, (T, N))
     masks = np.ones((T, N), np.float32)
@@ -127,6 +127,6 @@ def test_create_attn_mask_matches_sentinel_cumsum():
 
 def test_state_dict_covers_every_param(params):
     _, tc = _cfgs()
-    model = t_policy.load_policy(tc, params)
+    model = t_policy.load_policy(tc, params, "cpu")
     n_tree = sum(v.size for v in flatten_tree(params).values())
     assert n_tree == sum(p.numel() for p in model.parameters())

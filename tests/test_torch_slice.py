@@ -1,5 +1,6 @@
-"""The evaluation slice as a whole: the port's pretext_process, policy act and
-crowd_sim.step against the JAX package's, by state injection.
+"""The evaluation and training slices as a whole: the port's pretext_process,
+policy act and crowd_sim.step against the JAX package's, by state
+injection, in phase "test" and in phase "train".
 
 The JAX env is reset (3 humans; random and end goal changes off, so a step
 draws no random numbers), its EnvState is converted to the port's, and both
@@ -9,9 +10,12 @@ inputs. Positions and rewards go through ORCA (held to 2e-4 when LP2 is
 feasible) and the GST predictor (5e-4 on its absolute-frame output), so
 observations and rewards are held to 1e-3; done and outcome must be equal.
 The policy runs its einsum attention branch in f32 on both sides, to the
-2e-5 bound of tests/test_policy_parity.py:136.
+2e-5 bound of tests/test_policy_parity.py:136. The train phase has no
+ground-truth rollout; its rewards, potential and observations are held to
+the same 1e-3 over 5 steps of random actions, done and outcome exactly.
 
-Also runs the port's evaluate end to end on 2 flagship cases on the CPU.
+Also: vec_step's auto-reset against a step without reset, and the port's
+evaluate end to end on 2 flagship cases on the CPU.
 """
 
 import dataclasses
@@ -34,7 +38,7 @@ from crowdnav_prediction_attngraph_tpu.models.policy_net import (
     init_hidden as j_init_hidden, obs_to_dict as j_obs_to_dict)
 from crowdnav_prediction_attngraph_tpu_torch import config as tconfig
 from crowdnav_prediction_attngraph_tpu_torch.algo import evaluation
-from crowdnav_prediction_attngraph_tpu_torch.env import crowd_sim
+from crowdnav_prediction_attngraph_tpu_torch.env import crowd_sim, vector
 from crowdnav_prediction_attngraph_tpu_torch.env.pretext import pretext_process
 from crowdnav_prediction_attngraph_tpu_torch.env.types import (
     EnvState, HumanState, Observation, RobotState)
@@ -117,11 +121,13 @@ def setup():
     j_reset = jax.jit(jax.vmap(lambda k: j_crowd_sim.reset(jc, k)))
     j_pre = jax.jit(jax.vmap(lambda s, o, r: j_pretext(jc, gst_tree, s, o, r)))
     j_step = jax.jit(jax.vmap(lambda s, a: j_crowd_sim.step(jc, s, a, "test")))
+    j_step_train = jax.jit(jax.vmap(
+        lambda s, a: j_crowd_sim.step(jc, s, a, "train")))
     j_act = jax.jit(lambda o, h, m: j_policy.act(
         jc, pol_tree, o, h, m, jax.random.key(0), deterministic=True))
     return dict(jc=jc, tc=tc, j_reset=j_reset, j_pre=j_pre, j_step=j_step,
-                j_act=j_act, gst=load_gst(tc.pred, gst_tree),
-                policy=t_policy.load_policy(tc, pol_tree))
+                j_step_train=j_step_train, j_act=j_act, gst=load_gst(tc.pred, gst_tree, "cpu"),
+                policy=t_policy.load_policy(tc, pol_tree, "cpu"))
 
 
 def test_state_injected_steps_match_jax(setup):
@@ -150,7 +156,7 @@ def test_state_injected_steps_match_jax(setup):
         # env step from the injected JAX state, with the JAX action
         ts = to_port_state(js, gens)
         js2, jo2, jrew, jdone, jinfo = s["j_step"](js, ja)
-        ts2, to2, trew, tdone, tinfo = crowd_sim.step(tc, ts, _t(ja))
+        ts2, to2, trew, tdone, tinfo = crowd_sim.step(tc, ts, _t(ja), "test")
         assert_obs_close(to2, jo2, 1e-3)
         np.testing.assert_allclose(trew.numpy(), np.asarray(jrew), atol=1e-3)
         np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
@@ -172,6 +178,85 @@ def test_state_injected_steps_match_jax(setup):
         np.testing.assert_allclose(ts3.traj_buffer.numpy(),
                                    np.asarray(js3.traj_buffer), atol=1e-5)
         js, jo, jh = js3, jo3, jh_new
+
+
+def test_train_phase_injected_steps_match_jax(setup):
+    s = setup
+    tc = s["tc"]
+    keys = jax.vmap(lambda i: jax.random.fold_in(jax.random.key(4), i))(
+        jnp.arange(B))
+    js, jo = s["j_reset"](keys)
+    js, jo, _, _ = s["j_pre"](js, jo, jnp.zeros(B))
+    gens = [evaluation.case_generator(0, i, "train") for i in range(B)]
+    rng = np.random.RandomState(0)
+    for t in range(STEPS):
+        action = rng.uniform(-1.0, 1.0, (B, 2)).astype(np.float32)
+        js2, jo2, jrew, jdone, jinfo = s["j_step_train"](js, jnp.asarray(action))
+        ts2, to2, trew, tdone, tinfo = crowd_sim.step(
+            tc, to_port_state(js, gens), torch.from_numpy(action), "train")
+        assert_obs_close(to2, jo2, 1e-3)
+        np.testing.assert_allclose(trew.numpy(), np.asarray(jrew), atol=1e-3)
+        np.testing.assert_allclose(ts2.potential.numpy(),
+                                   np.asarray(js2.potential), atol=1e-3)
+        np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
+        np.testing.assert_array_equal(tinfo.outcome.numpy(),
+                                      np.asarray(jinfo.outcome))
+        assert not tinfo.min_dist.any()
+        # the train phase leaves the stored future untouched
+        torch.testing.assert_close(ts2.human_future_traj,
+                                   _t(js.human_future_traj))
+        js, jo, _, _ = s["j_pre"](js2, jo2, jrew)
+
+
+def _clone(gens):
+    out = []
+    for g in gens:
+        c = torch.Generator()
+        c.set_state(g.get_state())
+        out.append(c)
+    return out
+
+
+def test_vec_step_auto_resets_only_done_envs(setup):
+    tc = setup["tc"]
+    gst = setup["gst"]
+    gens = [evaluation.case_generator(9, i, "train") for i in range(B)]
+    states, _ = vector.vec_reset_with_pretext(tc, gens, gst, "cpu")
+    # env 0 reaches the time limit on this step
+    states.global_time[0] = tc.env.time_limit - 1.0
+    action = torch.from_numpy(np.random.RandomState(1).uniform(
+        -1.0, 1.0, (B, 2)).astype(np.float32))
+    twin = dataclasses.replace(states, gens=_clone(states.gens))
+
+    got_s, got_o, rew, done, info, penalty = vector.vec_step(
+        tc, states, action, "train", gst)
+    ref_s, ref_o, ref_rew, ref_done, ref_info = crowd_sim.step(
+        tc, twin, action, "train")
+    fresh_s, fresh_o = vector.vec_reset_with_pretext(
+        tc, _clone(twin.gens[:1]), gst, "cpu")
+    ref_s, ref_o, _, _ = pretext_process(tc, gst, ref_s, ref_o, ref_rew)
+
+    assert done.tolist() == [True] + [False] * (B - 1)
+    np.testing.assert_array_equal(done.numpy(), ref_done.numpy())
+    np.testing.assert_array_equal(info.outcome.numpy(),
+                                  ref_info.outcome.numpy())
+    # reward and done are the terminating step's (plus the pretext penalty)
+    torch.testing.assert_close(rew - penalty, ref_rew)
+    # the done env starts its next episode from its own generator
+    assert got_s.step_count[0] == 0 and got_s.global_time[0] == 0.0
+    for f in ("robot_node", "spatial_edges", "detected_human_num"):
+        torch.testing.assert_close(getattr(got_o, f)[0],
+                                   getattr(fresh_o, f)[0])
+    # the other envs are the step without reset
+    keep = torch.arange(1, B)
+    for f in ("robot_node", "temporal_edges", "spatial_edges",
+              "visible_masks", "detected_human_num"):
+        torch.testing.assert_close(getattr(got_o, f)[keep],
+                                   getattr(ref_o, f)[keep])
+    torch.testing.assert_close(got_s.humans.pos[keep], ref_s.humans.pos[keep])
+    torch.testing.assert_close(got_s.traj_buffer[keep],
+                               ref_s.traj_buffer[keep])
+    torch.testing.assert_close(rew[keep], (ref_rew + penalty)[keep])
 
 
 def test_reset_matches_distribution_and_invariants():
@@ -199,9 +284,9 @@ def test_reset_matches_distribution_and_invariants():
 def test_evaluate_two_cases_on_cpu():
     cfg = tconfig.config_from_snapshot(os.path.join(MODEL_DIR, "config.json"))
     policy = t_policy.load_policy(
-        cfg, os.path.join(WEIGHTS, "r5_selfgst_10250_policy.npz"))
+        cfg, os.path.join(WEIGHTS, "r5_selfgst_10250_policy.npz"), "cpu")
     gst = load_gst(cfg.pred, os.path.join(WEIGHTS,
-                                          "gst_sj_tpu_r5_b64_epoch100.npz"))
+                                          "gst_sj_tpu_r5_b64_epoch100.npz"), "cpu")
     res = evaluation.evaluate(cfg, policy, gst, test_size=2, device="cpu",
                               log=lambda m: None)
     line = evaluation.format_results(res)

@@ -72,7 +72,7 @@ def main(argv=None):
 
     def one_step(state, obs, hxs):
         _, action, _, hxs = pmod.act(policy, obs_to_dict(obs), hxs, masks)
-        state, obs, rew, _, _ = crowd_sim.step(cfg, state, action)
+        state, obs, rew, _, _ = crowd_sim.step(cfg, state, action, "test")
         state, obs, _, _ = pretext_process(cfg, gst, state, obs, rew)
         return state, obs, hxs
 
@@ -85,7 +85,7 @@ def main(argv=None):
         "truth_rollout_5_orca": lambda: crowd_sim.calc_human_future_traj(
             cfg, state, state.visible_masks),
         "crowd_sim_step_total": lambda: crowd_sim.step(
-            cfg, state, torch.zeros(B, 2, device=device)),
+            cfg, state, torch.zeros(B, 2, device=device), "test"),
         "gst_pretext": lambda: pretext_process(
             cfg, gst, state, obs, torch.zeros(B, device=device)),
     }
@@ -111,10 +111,11 @@ def main(argv=None):
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    dev = [(e.key, e.device_time_total / 1e3, e.count) for e in events
-           if e.device_time_total > 0]
-    # top-level CUDA kernels only (no CPU-side wrapper rows)
-    kernels = sorted([d for d in dev if not d[0].startswith("aten::")],
+    # CUDA kernels only: CPU-side rows (aten ops, autograd Functions) carry
+    # their kernels' device time too
+    kernels = sorted([(e.key, e.device_time_total / 1e3, e.count)
+                      for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA],
                      key=lambda d: -d[1])
     device_ms = sum(d[1] for d in kernels)
     print(json.dumps({
