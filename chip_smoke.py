@@ -6,19 +6,27 @@ Phases, each printing one JSON line with its seconds before the next starts:
 
 1. device: requires CUDA (exits non-zero otherwise) and prints the card's
    name and power limit as nvidia-smi reports them;
-2. build: compiles every kernel of the evaluation and training paths with
-   nvcc (sm_90a), one nvcc process per source, all started together;
+2. build: compiles every kernel of the evaluation, training and edges/s
+   paths with nvcc (sm_90a), one nvcc process per source, all started
+   together;
 3. kernels: holds K1 (fused graph attention) against its plain PyTorch
    version on the card at every shape the paths give it (rows = 32 for the
    evaluation's cases, 64 for the rollout's envs, 960 for the update's
-   minibatch; A = 20 humans, D = 512, 8 heads), in f32 (atol
-   3e-4) and bf16 (atol 3e-2), with an all-masked row checked for
-   isolation; holds K2 (its backward) against its plain version at the
-   update's shape in f32 (atol 5e-3 / rtol 1e-3) and bf16 (max abs error
-   <= 1e-2 x the largest entry of each gradient), with an all-masked row
-   whose dx must be 0 and a second run that must give the same bits; times
-   each beside its plain version, its bound and a PyTorch library
-   composition;
+   minibatch; A = 20 humans, D = 512, 8 heads) and at rows = 960, A = 50
+   (the widest crowd of the repo's configs), in f32 (atol 3e-4) and bf16
+   (atol 3e-2), with an all-masked row checked for isolation, and in bf16
+   at the edges/s bench's own inputs (``bench_edges.sweep_inputs``: rows
+   480, 1920 and 7680, x scaled by 0.3); holds K2 (its
+   backward) against its plain version at the update's shape and at A = 50
+   in f32 (atol 5e-3 / rtol 1e-3) and bf16 (max abs error <= 1e-2 x the
+   largest entry of each gradient), with an all-masked row whose dx must be
+   0 and a second run that must give the same bits; holds K3 (packed masked
+   attention over precomputed q, k, v, f32) against its plain version at
+   the edges/s bench's shape (rows = 4096, A = 20) and at (960, 50) and
+   (7, 64) to atol 2e-5, with an all-masked row that must be exactly 0 and
+   leave the other rows' bits alone, and masked keys whose v at 1e6 must
+   change no bit; times each beside its plain version, its bound and a
+   PyTorch library call or composition;
 4. evaluate: loads the committed weights and runs the port's seeded
    evaluation of the flagship pair (trained_models/
    GST_predictor_rand_tpu_r5_selfgst, test cases 0..31 as one batch, K1 in
@@ -37,7 +45,15 @@ Phases, each printing one JSON line with its seconds before the next starts:
    versions on the card (cosine >= 0.999 over all params, and relative
    error <= 1e-3 on each leaf of the attention block), a timed update, and a
    checkpoint whose params .npz, reloaded with load_policy, must give the
-   same deterministic action bit for bit.
+   same deterministic action bit for bit;
+6. edges: the edges/s bench (``ops.bench_edges``) at its full shapes,
+   ``single_device`` (K3 and its plain version at rows = 4096) and
+   ``fused_sweep`` (K1 and its plain version at rows 480, 1920 and 7680),
+   with the launch counts zeroed just before and read just after; fails on
+   a rate or time that is not finite and positive, or on launch counts
+   other than the bench's own (K3 once per timed or warm-up call of
+   ``single_device``, K1 once per such call of ``fused_sweep`` at each row
+   count, K2 never).
 
 The last two lines are the kernels line ({"kernels": [...]}) and
 {"ok": true, "device": {...}}. Nothing falls back to the CPU: a phase that
@@ -67,10 +83,12 @@ from crowdnav_prediction_attngraph_tpu_torch.models import policy as pmod
 from crowdnav_prediction_attngraph_tpu_torch.models.gst.predictor import load_gst
 from crowdnav_prediction_attngraph_tpu_torch.models.policy_net import (
     init_hidden, obs_to_dict)
-from crowdnav_prediction_attngraph_tpu_torch.ops import _build, masked_attention
+from crowdnav_prediction_attngraph_tpu_torch.ops import (
+    _build, bench_edges, masked_attention)
 from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
     fused_graph_attention, fused_graph_attention_backward,
-    reference_fused_graph_attention, reference_fused_graph_attention_backward)
+    packed_masked_attention, reference_fused_graph_attention,
+    reference_fused_graph_attention_backward, reference_masked_attention)
 from crowdnav_prediction_attngraph_tpu_torch.test import (
     DEFAULT_GST_PARAMS, DEFAULT_PARAMS)
 from crowdnav_prediction_attngraph_tpu_torch.utils import checkpoint
@@ -83,6 +101,10 @@ MIN_SUCCESS = 0.70
 TRAIN_ITERS = 2
 K1_ROWS = (N_CASES, 64, 960)
 A, D, HEADS = 20, 512, 8
+A_WIDE = 50            # the widest crowd of the repo's configs (10-50 humans)
+# K3 at the edges/s bench's shape, then at the wide crowd and the limit
+K3_SHAPES = ((4096, 20), (960, A_WIDE), (7, 64))
+K3_ATOL = 2e-5
 # NVIDIA H100 SXM data-sheet peaks (dense) and memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -119,16 +141,27 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def k1_inputs(rows: int, seed: int, device):
+def k1_inputs(rows: int, seed: int, device, a: int = A):
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn(rows, A, D, generator=g)
+    x = torch.randn(rows, a, D, generator=g)
     w_qkv = torch.randn(D, 3 * D, generator=g) / math.sqrt(D)
     b_qkv = torch.randn(3 * D, generator=g) * 0.01
     w_out = torch.randn(D, D, generator=g) / math.sqrt(D)
     b_out = torch.randn(D, generator=g) * 0.01
-    det = torch.randint(1, A + 1, (rows,), generator=g)
-    mask = torch.arange(A)[None, :] < det[:, None]
+    det = torch.randint(1, a + 1, (rows,), generator=g)
+    mask = torch.arange(a)[None, :] < det[:, None]
     return [t.to(device) for t in (x, mask, w_qkv, b_qkv, w_out, b_out)]
+
+
+def k3_inputs(rows: int, a: int, seed: int, device):
+    """q, k, v and a key mask with at least one valid key per row, made on
+    the card from a seed."""
+    g = torch.Generator(device).manual_seed(seed)
+    q, k, v = (torch.randn(rows, a, D, generator=g, device=device)
+               for _ in range(3))
+    det = torch.randint(1, a + 1, (rows,), generator=g, device=device)
+    mask = torch.arange(a, device=device)[None, :] < det[:, None]
+    return q, k, v, mask
 
 
 def time_ms(fn, reps: int = 30) -> float:
@@ -155,12 +188,12 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_bound_ms(rows: int, dtype) -> tuple:
+def k1_bound_ms(rows: int, dtype, a: int = A) -> tuple:
     """K1's work at these shapes: each input read once, the output written
     once; the QKV projection, QK^T and PV, and the output projection."""
-    tokens = rows * A
+    tokens = rows * a
     flops = (2 * tokens * D * 3 * D
-             + 2 * 2 * rows * HEADS * A * A * (D // HEADS)
+             + 2 * 2 * rows * HEADS * a * a * (D // HEADS)
              + 2 * tokens * D * D)
     nbytes = (4 * tokens * D + tokens
               + 4 * (D * 3 * D + 3 * D + D * D + D)
@@ -168,29 +201,37 @@ def k1_bound_ms(rows: int, dtype) -> tuple:
     return bound_ms(flops, nbytes, dtype)
 
 
-def k2_bound_ms(rows: int, dtype) -> tuple:
+def k2_bound_ms(rows: int, dtype, a: int = A) -> tuple:
     """K2's work as the TPU kernel does it, not counting the port's scratch:
     x, g, the mask and the weights read once, dx and the four weight
     gradients written once; 22 T D^2 FLOP of projections (q/k/v recompute
     6, dattn 2, dx 6, dW_qkv 6, dW_out 2) and 12 rows A^2 D of attention
     (logits, P v, dv, dP, dq, dk)."""
-    tokens = rows * A
-    flops = 22 * tokens * D * D + 12 * rows * A * A * D
+    tokens = rows * a
+    flops = 22 * tokens * D * D + 12 * rows * a * a * D
     nbytes = (4 * 2 * tokens * D + tokens + 4 * (D * 3 * D + 3 * D + D * D)
               + 4 * tokens * D + 4 * (D * 3 * D + 3 * D + D * D + D))
     return bound_ms(flops, nbytes, dtype)
 
 
+def k3_bound_ms(rows: int, a: int) -> tuple:
+    """K3's work: q, k, v and the mask read once, the output written once;
+    QK^T and PV for every head (4 rows A^2 D FLOP) in f32."""
+    flops = 4 * rows * a * a * D
+    nbytes = 4 * 4 * rows * a * D + rows * a
+    return bound_ms(flops, nbytes, torch.float32)
+
+
 def k1_library(x, mask, w_qkv, b_qkv, w_out, b_out, dtype):
     """One PyTorch composition of the same function (yardstick only):
     addmm -> scaled_dot_product_attention -> addmm in the compute dtype."""
-    rows = x.shape[0]
+    rows, a = x.shape[:2]
     xc, wq, wo = x.to(dtype), w_qkv.to(dtype), w_out.to(dtype)
     bq, bo = b_qkv.to(dtype), b_out.to(dtype)
     attn_mask = mask[:, None, None, :]
 
     def run(xc=xc, wq=wq, bq=bq, wo=wo, bo=bo):
-        qkv = torch.addmm(bq, xc.reshape(-1, D), wq).reshape(rows, A, 3, HEADS,
+        qkv = torch.addmm(bq, xc.reshape(-1, D), wq).reshape(rows, a, 3, HEADS,
                                                              D // HEADS)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
         o = torch.nn.functional.scaled_dot_product_attention(
@@ -209,9 +250,22 @@ def k2_library(x, mask, w_qkv, b_qkv, w_out, b_out, g, dtype):
     return lambda: torch.autograd.grad(out, leaves, gc, retain_graph=True)
 
 
-def check_k1(rows: int, device) -> dict:
-    args = k1_inputs(rows, seed=rows, device=device)
-    res = {"rows": rows}
+def k3_library(q, k, v, mask):
+    """One PyTorch call of the same function (yardstick only):
+    scaled_dot_product_attention with a boolean key mask on (rows, heads, A,
+    hd) views of the same inputs, its output left in that layout. Rows with
+    no valid key differ (NaN there); the bench's rows all have one."""
+    rows, a = q.shape[:2]
+    qh, kh, vh = (t.view(rows, a, HEADS, D // HEADS).transpose(1, 2)
+                  for t in (q, k, v))
+    attn_mask = mask[:, None, None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=attn_mask)
+
+
+def check_k1(rows: int, device, a: int = A) -> dict:
+    args = k1_inputs(rows, seed=rows, device=device, a=a)
+    res = {"rows": rows, "A": a}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         got = fused_graph_attention(*args, HEADS, compute_dtype=dtype)
         torch.cuda.synchronize()
@@ -230,7 +284,7 @@ def check_k1(rows: int, device) -> dict:
         out1 = fused_graph_attention(x, mask, *args[2:], HEADS,
                                      compute_dtype=dtype)
         keep = torch.arange(rows, device=device) != 1
-        if not (torch.equal(out0[1], args[5].expand(A, D))
+        if not (torch.equal(out0[1], args[5].expand(a, D))
                 and torch.equal(out0[keep], out1[keep])):
             fail(f"K1 {tag} rows={rows}: all-masked row isolation broken")
         res[f"kernel_ms_{tag}"] = time_ms(lambda: fused_graph_attention(
@@ -240,18 +294,35 @@ def check_k1(rows: int, device) -> dict:
                                                     compute_dtype=dtype))
         res[f"library_ms_{tag}"] = time_ms(k1_library(*args, dtype))
         res[f"bound_ms_{tag}"], res[f"bound_by_{tag}"] = k1_bound_ms(rows,
-                                                                     dtype)
+                                                                     dtype, a)
     return res
 
 
-def check_k2(rows: int, device) -> dict:
+def check_k1_edges(device) -> dict:
+    """K1 (bf16, as the edges path runs it) against its plain version at
+    each of ``fused_sweep``'s inputs: {rows: max abs error}."""
+    errs = {}
+    for rows, args in bench_edges.sweep_inputs(device=device):
+        got = fused_graph_attention(*args, HEADS, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        expect = reference_fused_graph_attention(
+            *args, HEADS, compute_dtype=torch.bfloat16)
+        err = (got - expect).abs().max().item()
+        if not math.isfinite(err) or err > ATOL[torch.bfloat16]:
+            fail(f"K1 bf16 at the edges path's rows={rows}: max abs err {err}"
+                 f" > {ATOL[torch.bfloat16]}")
+        errs[rows] = err
+    return errs
+
+
+def check_k2(rows: int, device, a: int = A) -> dict:
     x, mask, w_qkv, b_qkv, w_out, b_out = k1_inputs(rows, seed=rows + 7,
-                                                    device=device)
+                                                    device=device, a=a)
     mask[1] = False                                   # an all-masked row
-    g = torch.randn(rows, A, D, generator=torch.Generator().manual_seed(
+    g = torch.randn(rows, a, D, generator=torch.Generator().manual_seed(
         rows)).to(device)
     args = (x, mask, w_qkv, b_qkv, w_out, g)
-    res = {"rows": rows}
+    res = {"rows": rows, "A": a}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         got = fused_graph_attention_backward(*args, HEADS, compute_dtype=dtype)
         torch.cuda.synchronize()
@@ -283,7 +354,41 @@ def check_k2(rows: int, device) -> dict:
         res[f"library_ms_{tag}"] = time_ms(
             k2_library(x, mask, w_qkv, b_qkv, w_out, b_out, g, dtype), reps=10)
         res[f"bound_ms_{tag}"], res[f"bound_by_{tag}"] = k2_bound_ms(rows,
-                                                                     dtype)
+                                                                     dtype, a)
+    return res
+
+
+def check_k3(rows: int, a: int, device, timed: bool) -> dict:
+    q, k, v, mask = k3_inputs(rows, a, rows + a, device)
+    got = packed_masked_attention(q, k, v, mask, HEADS)
+    torch.cuda.synchronize()
+    expect = reference_masked_attention(q, k, v, mask, HEADS)
+    err = (got - expect).abs().max().item()
+    if not math.isfinite(err) or err > K3_ATOL:
+        fail(f"K3 rows={rows} A={a}: max abs err {err} > {K3_ATOL}")
+    # an all-masked row: exactly 0, every other row's bits unchanged
+    mask1 = mask.clone()
+    mask1[1] = False
+    out1 = packed_masked_attention(q, k, v, mask1, HEADS)
+    keep = torch.arange(rows, device=device) != 1
+    if torch.count_nonzero(out1[1]) or not torch.equal(out1[keep], got[keep]):
+        fail(f"K3 rows={rows} A={a}: all-masked row not 0 or not isolated")
+    # masked keys get no weight: their v at 1e6 changes no bit
+    v1 = torch.where(mask[..., None], v, torch.full_like(v, 1e6))
+    if not torch.equal(packed_masked_attention(q, k, v1, mask, HEADS), got):
+        fail(f"K3 rows={rows} A={a}: masked keys leak into the output")
+    res = {"rows": rows, "A": a, "max_abs_err": err}
+    if timed:
+        library = k3_library(q, k, v, mask)
+        res["library_max_abs_err"] = (
+            library().transpose(1, 2).reshape(rows, a, D) - expect
+        ).abs().max().item()
+        res["ms"] = time_ms(lambda: packed_masked_attention(q, k, v, mask,
+                                                            HEADS))
+        res["plain_ms"] = time_ms(lambda: reference_masked_attention(
+            q, k, v, mask, HEADS))
+        res["library_ms"] = time_ms(library)
+        res["bound_ms"], res["bound_by"] = k3_bound_ms(rows, a)
     return res
 
 
@@ -306,12 +411,14 @@ def plain_kernels():
 def zero_counts():
     fused_graph_attention.launches = 0
     fused_graph_attention_backward.launches = 0
+    packed_masked_attention.launches = 0
 
 
 def read_counts() -> dict:
     return {"K1_fused_graph_attention": fused_graph_attention.launches,
             "K2_fused_graph_attention_backward":
-                fused_graph_attention_backward.launches}
+                fused_graph_attention_backward.launches,
+            "K3_packed_masked_attention": packed_masked_attention.launches}
 
 
 def phase_evaluate(cfg, gst, device) -> dict:
@@ -386,7 +493,8 @@ def phase_train(cfg, gst, device) -> dict:
     n_updates = p.ppo_epoch * p.num_mini_batch
     expect = {"K1_fused_graph_attention":
               TRAIN_ITERS * (p.num_steps + 1 + n_updates),
-              "K2_fused_graph_attention_backward": TRAIN_ITERS * n_updates}
+              "K2_fused_graph_attention_backward": TRAIN_ITERS * n_updates,
+              "K3_packed_masked_attention": 0}
     if launches != expect:
         fail(f"train launches {launches}, expected {expect}")
     if not all(math.isfinite(v) for m in metrics for v in m.values()):
@@ -473,6 +581,33 @@ def phase_train(cfg, gst, device) -> dict:
     return launches
 
 
+def phase_edges(device) -> tuple:
+    """The edges/s bench at its full shapes, through its own entry points:
+    (launch counts, fused_sweep's ms)."""
+    t0 = time.perf_counter()
+    zero_counts()
+    torch.cuda.synchronize()
+    rates = bench_edges.single_device(device=device)
+    sweep = bench_edges.fused_sweep(device=device)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    calls = bench_edges.ITERS + 1                     # a warm-up, then ITERS
+    expect = {"K1_fused_graph_attention": len(bench_edges.SWEEP_ROWS) * calls,
+              "K2_fused_graph_attention_backward": 0,
+              "K3_packed_masked_attention": calls}
+    emit("edges", t0, single_device_edges_per_s=rates,
+         single_device_g_edges_per_s={k: v / 1e9 for k, v in rates.items()},
+         fused_sweep_ms=sweep, launches=launches)
+    values = list(rates.values()) + [t for row in sweep.values()
+                                     for t in row.values()]
+    if not all(math.isfinite(v) and v > 0 for v in values):
+        fail(f"edges: a rate or time is not finite and positive: {rates}, "
+             f"{sweep}")
+    if launches != expect:
+        fail(f"edges launches {launches}, expected {expect}")
+    return launches, sweep
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -487,7 +622,8 @@ def main() -> int:
     print(smi, flush=True)
 
     t0 = time.perf_counter()
-    names = [masked_attention.KERNEL, masked_attention.KERNEL_BWD]
+    names = [masked_attention.KERNEL, masked_attention.KERNEL_BWD,
+             masked_attention.KERNEL_ATTN]
     reports = _build.build(names)
     ptxas = {k: [ln for ln in v.splitlines() if "registers" in ln
                  or "spill" in ln] for k, v in reports.items()}
@@ -497,17 +633,26 @@ def main() -> int:
     # the paths' shapes: evaluation (32 cases), rollout act/get_value (64
     # envs) and the update's minibatch (30 steps x 32 envs)
     k1 = {rows: check_k1(rows, device) for rows in K1_ROWS}
+    k1_wide = check_k1(960, device, A_WIDE)
+    k1_edges = check_k1_edges(device)
     k2 = check_k2(960, device)
-    emit("kernels", t0, k1=k1, k2=k2)
+    k2_wide = check_k2(960, device, A_WIDE)
+    # K3 timed at the bench's shape only
+    k3 = [check_k3(rows, a, device, timed=(i == 0))
+          for i, (rows, a) in enumerate(K3_SHAPES)]
+    emit("kernels", t0, k1=k1, k1_a50=k1_wide,
+         k1_edges_max_abs_err_bf16=k1_edges, k2=k2, k2_a50=k2_wide, k3=k3)
 
     cfg = config_from_snapshot(os.path.join(MODEL_DIR, "config.json"))
     gst = load_gst(cfg.pred, DEFAULT_GST_PARAMS, device)
     eval_launches = phase_evaluate(cfg, gst, device)
     train_launches = phase_train(cfg, gst, device)
+    edges_launches, edges_sweep = phase_edges(device)
+    path_launches = {"evaluate": eval_launches, "train": train_launches,
+                     "edges": edges_launches}
 
-    def entry(name, source, replaces, m, shape):
-        by_path = {"evaluate": eval_launches[name],
-                   "train": train_launches[name]}
+    def entry(name, source, replaces, m, shape, paths):
+        by_path = {p: path_launches[p][name] for p in paths}
         return {
             "name": name, "route": "cuda",
             "source": f"crowdnav_prediction_attngraph_tpu_torch/ops/csrc/"
@@ -524,13 +669,35 @@ def main() -> int:
             "f32": {k[:-4]: v for k, v in m.items() if k.endswith("_f32")},
         }
     k1_entry = entry("K1_fused_graph_attention", "fused_graph_attention.cu",
-                     175, k1[N_CASES], {"rows": N_CASES})
+                     175, k1[N_CASES], {"rows": N_CASES},
+                     ("evaluate", "train", "edges"))
     for rows in K1_ROWS[1:]:
         k1_entry[f"rows{rows}"] = k1[rows]
+    k1_entry[f"rows960_a{A_WIDE}"] = k1_wide
+    k1_entry["edges_max_abs_err_bf16"] = k1_edges
+    k1_entry["edges_fused_sweep_ms"] = edges_sweep
     k2_entry = entry("K2_fused_graph_attention_backward",
-                     "fused_graph_attention_bwd.cu", 298, k2, {"rows": 960})
+                     "fused_graph_attention_bwd.cu", 298, k2, {"rows": 960},
+                     ("evaluate", "train"))
     k2_entry["max_abs_err_by_grad_bf16"] = k2["max_abs_err_by_grad_bf16"]
-    print(json.dumps({"kernels": [k1_entry, k2_entry]}), flush=True)
+    k2_entry[f"rows960_a{A_WIDE}"] = k2_wide
+    k3_by_path = {"edges": edges_launches["K3_packed_masked_attention"]}
+    k3_entry = {
+        "name": "K3_packed_masked_attention", "route": "cuda",
+        "source": "crowdnav_prediction_attngraph_tpu_torch/ops/csrc/"
+                  "packed_masked_attention.cu",
+        "replaces": "crowdnav_prediction_attngraph_tpu/ops/"
+                    "masked_attention.py:50",
+        "launches": sum(k3_by_path.values()), "launches_by_path": k3_by_path,
+        "shape": {"rows": K3_SHAPES[0][0], "A": K3_SHAPES[0][1], "D": D,
+                  "heads": HEADS, "dtype": "f32"},
+        **{key: k3[0][key] for key in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "library_max_abs_err")},
+        "max_abs_err_by_shape": {f"rows{r['rows']}_a{r['A']}":
+                                 r["max_abs_err"] for r in k3},
+    }
+    print(json.dumps({"kernels": [k1_entry, k2_entry, k3_entry]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

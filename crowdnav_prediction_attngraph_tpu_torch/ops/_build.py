@@ -5,9 +5,10 @@ PyTorch headers, so it compiles with ``nvcc`` alone in seconds (a source that
 includes ``torch/extension.h`` and goes through
 ``torch.utils.cpp_extension.load`` takes minutes, and needs ninja). The
 shared library lands in ``<repo>/.torch_build/`` (listed in ``.gitignore``)
-under a name that carries the hash of its source and flags, so a changed
-source is rebuilt and an unchanged one is reused. Nothing is built when a
-module is imported: the first call that needs a kernel builds it.
+under a name that carries the hash of its source, the shared headers of
+``csrc/`` (``*.cuh``) and the flags, so a changed source is rebuilt and an
+unchanged one is reused. Nothing is built when a module is imported: the
+first call that needs a kernel builds it.
 """
 
 from __future__ import annotations
@@ -40,8 +41,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every shared header it may include
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
 
 

@@ -20,15 +20,13 @@
 // (the TPU's sequential grid accumulated the weight gradients across grid
 // steps for free):
 //
-//  A. one block of 256 threads per row (one env-timestep's A <= 32 agents):
-//     the row's x and g staged in shared memory, dattn computed once for all
-//     heads (each thread owns two columns for all A tokens), then per head
+//  A. one block of 256 threads per row (one env-timestep's A <= 64 agents,
+//     row_backward_kernel): dattn = g . W_out^T for all heads, then per head
 //     the q/k/v recompute, the masked softmax (one warp per query), the
 //     attention output, dv = P^T da, dS = P o (dP - rowsum(dP o P)),
-//     dq = dS k scale, dk = dS^T q, and the head's share of
-//     dx = dqkv . W_qkv^T accumulated in registers. It writes dx, and dqkv
-//     (f32) and the rounded attention output to scratch the wrapper
-//     allocates.
+//     dq = dS k scale and dk = dS^T q, and at the end dx = dqkv . W_qkv^T.
+//     It writes dx, and dqkv (f32) and the rounded attention output to
+//     scratch the wrapper allocates.
 //  B. the weight gradients dW_qkv = X^T dQKV and dW_out = Attn^T G as
 //     shared-memory-tiled products over all rows x A tokens, one block per
 //     64 x 64 output tile looping over every token in a fixed order, and the
@@ -43,20 +41,85 @@
 // reads are along contiguous rows). Tensor cores (wgmma), weight tiles in
 // shared memory and several rows per block are left to a later version.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "softmax64.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxHeadDim = 64;
 constexpr int kMaxCols = 2;  // columns per thread in pass A: D <= 512
+constexpr int kChunk = 64;   // features staged at a time in pass A
 
-__device__ __forceinline__ float round_to(float v, int bf16) {
-  return bf16 ? __bfloat162float(__float2bfloat16(v)) : v;
+// Y (A x N) = round(X) . round(W) for X (A x K, row stride ldx) and W
+// (K x N), both row-major in device memory; Y rounded if round_out. Thread t
+// owns columns t and t + kThreads for 32 tokens at a time; X is staged in
+// `chunk` (32 x kChunk), kChunk of its columns at a time. X may have
+// been written by this block: it is read with plain loads after a barrier.
+__device__ void token_block_product(const float* X, int ldx, int K,
+                                    const float* __restrict__ W, float* Y,
+                                    int A, int N, float* chunk, int bf16,
+                                    bool round_out) {
+  const int tid = threadIdx.x;
+  for (int t0 = 0; t0 < A; t0 += 32) {
+    const int nt = min(32, A - t0);
+    float acc[kMaxCols][32];
+#pragma unroll
+    for (int cc = 0; cc < kMaxCols; ++cc)
+#pragma unroll
+      for (int a = 0; a < 32; ++a) acc[cc][a] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += kChunk) {
+      const int kc = min(kChunk, K - k0);
+      __syncthreads();  // the previous chunk is read; X is complete
+      for (int i = tid; i < nt * kc; i += kThreads) {
+        const int a = i / kc;
+        const int kk = i - a * kc;
+        chunk[a * kChunk + kk] =
+            round_to(X[static_cast<size_t>(t0 + a) * ldx + k0 + kk], bf16);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int cc = 0; cc < kMaxCols; ++cc) {
+        const int n = tid + cc * kThreads;
+        if (n < N) {
+          for (int kk = 0; kk < kc; ++kk) {
+            const float w = round_to(__ldg(W + static_cast<size_t>(k0 + kk) * N + n), bf16);
+#pragma unroll
+            for (int a = 0; a < 32; ++a)
+              if (a < nt) acc[cc][a] = fmaf(chunk[a * kChunk + kk], w, acc[cc][a]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int cc = 0; cc < kMaxCols; ++cc) {
+      const int n = tid + cc * kThreads;
+      if (n < N) {
+#pragma unroll
+        for (int a = 0; a < 32; ++a)
+          if (a < nt)
+            Y[static_cast<size_t>(t0 + a) * N + n] =
+                round_out ? round_to(acc[cc][a], bf16) : acc[cc][a];
+      }
+    }
+  }
 }
 
+// Pass A: one block of 256 threads per row (one env-timestep's A <= MAXA
+// agents). Staging the row's x and g in f32 would take 2 x 64 x 512 x 4 B =
+// 256 KiB at A = 64, more than the 227 KiB a block may use, so the block
+// keeps only the current head resident (q, k, v, its dattn columns, P, dS
+// and a staging chunk: 113 KiB at MAXA = 64, 49 KiB at MAXA = 32) and
+//  * computes dattn = g_c . W_out^T_c for all heads first, 32 tokens at a
+//    time, and parks it (rounded) in the row's dx, which is written last;
+//  * re-reads x from L2 for each head's q/k/v recompute, kChunk features at
+//    a time;
+//  * writes dq, dk and dv only to the dqkv scratch, and at the end computes
+//    dx = dqkv_c . W_qkv^T from there, 32 tokens at a time.
+// Every sum runs in a fixed order, without atomics. MAXA is the tier of
+// token slots that the unrolled loops run over (32 for A <= 32, else 64).
 template <int MAXA>
 __global__ void __launch_bounds__(kThreads)
 row_backward_kernel(const float* __restrict__ x,
@@ -72,16 +135,13 @@ row_backward_kernel(const float* __restrict__ x,
   const int hd = D / H;
   const int ld = hd + 1;  // padded stride: rows fall in distinct banks
   const int D3 = 3 * D;
-  float* xs = smem;                // MAXA x D: x (rounded)
-  float* das = xs + MAXA * D;      // MAXA x D: g, then dattn (rounded)
-  float* qs = das + MAXA * D;      // MAXA x ld: q x scale (rounded)
-  float* ks = qs + MAXA * ld;      // MAXA x ld: k (rounded)
-  float* vs = ks + MAXA * ld;      // MAXA x ld: v (rounded)
-  float* dqs = vs + MAXA * ld;     // MAXA x ld: dq, dk, dv (rounded)
-  float* dks = dqs + MAXA * ld;
-  float* dvs = dks + MAXA * ld;
-  float* ps = dvs + MAXA * ld;     // MAXA x MAXA: P (f32)
-  float* dss = ps + MAXA * MAXA;   // MAXA x MAXA: dS (rounded)
+  float* chunk = smem;                // MAXA x kChunk: x, g or dqkv columns
+  float* qs = chunk + MAXA * kChunk;  // A x ld: q x scale (rounded)
+  float* ks = qs + MAXA * ld;         // A x ld: k (rounded)
+  float* vs = ks + MAXA * ld;         // A x ld: v (rounded)
+  float* das = vs + MAXA * ld;        // A x ld: this head's dattn (rounded)
+  float* ps = das + MAXA * ld;        // MAXA x MAXA: P (f32)
+  float* dss = ps + MAXA * MAXA;      // MAXA x MAXA: dS (rounded)
   __shared__ unsigned char valid[MAXA];
   __shared__ int any_valid;
 
@@ -92,11 +152,8 @@ row_backward_kernel(const float* __restrict__ x,
   const float scale = 1.f / sqrtf(static_cast<float>(hd));
   const float scale_c = round_to(scale, bf16);
   const size_t tok0 = static_cast<size_t>(row) * A;  // first token of the row
+  float* dattn = dx + tok0 * D;  // parked in the row's dx until the end
 
-  for (int i = tid; i < A * D; i += kThreads) {
-    xs[i] = round_to(x[tok0 * D + i], bf16);
-    das[i] = round_to(g[tok0 * D + i], bf16);
-  }
   if (tid < MAXA) valid[tid] = (tid < A) ? (mask[tok0 + tid] != 0) : 0;
   __syncthreads();
   if (tid == 0) {
@@ -105,53 +162,42 @@ row_backward_kernel(const float* __restrict__ x,
     any_valid = any;
   }
 
-  float acc[kMaxCols][MAXA];
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c)
-#pragma unroll
-    for (int a = 0; a < MAXA; ++a) acc[c][a] = 0.f;
-
-  // dattn = g . W_out^T for all heads: thread owns columns n for all tokens
-#pragma unroll
-  for (int cc = 0; cc < kMaxCols; ++cc) {
-    const int n = tid + cc * kThreads;
-    if (n < D) {
-      for (int d = 0; d < D; ++d) {
-        const float w = round_to(__ldg(w_out_t + static_cast<size_t>(d) * D + n), bf16);
-#pragma unroll
-        for (int a = 0; a < MAXA; ++a)
-          if (a < A) acc[cc][a] = fmaf(das[a * D + d], w, acc[cc][a]);
-      }
-    }
-  }
-  __syncthreads();  // every thread has read g
-#pragma unroll
-  for (int cc = 0; cc < kMaxCols; ++cc) {
-    const int n = tid + cc * kThreads;
-#pragma unroll
-    for (int a = 0; a < MAXA; ++a) {
-      if (n < D && a < A) das[a * D + n] = round_to(acc[cc][a], bf16);
-      acc[cc][a] = 0.f;  // from here on: dx
-    }
-  }
-  __syncthreads();
+  token_block_product(g + tok0 * D, D, D, w_out_t, dattn, A, D, chunk, bf16, true);
 
   for (int h = 0; h < H; ++h) {
     const int h0 = h * hd;
+    __syncthreads();  // dattn is complete; the last head's buffers are read
+    for (int i = tid; i < A * hd; i += kThreads) {
+      const int a = i / hd;
+      const int c = i - a * hd;
+      das[a * ld + c] = dattn[static_cast<size_t>(a) * D + h0 + c];
+    }
     // recompute q_h x scale, k_h, v_h: thread t < 3*hd owns one column
-    if (tid < 3 * hd) {
-      const int part = tid / hd;
-      const int c = tid - part * hd;
-      const int col = part * D + h0 + c;
-      float p[MAXA];
+    const int part = tid / hd;
+    const int c = tid - part * hd;
+    const int col = part * D + h0 + c;
+    float p[MAXA];
 #pragma unroll
-      for (int a = 0; a < MAXA; ++a) p[a] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float w = round_to(__ldg(w_qkv + static_cast<size_t>(d) * D3 + col), bf16);
-#pragma unroll
-        for (int a = 0; a < MAXA; ++a)
-          if (a < A) p[a] = fmaf(xs[a * D + d], w, p[a]);
+    for (int a = 0; a < MAXA; ++a) p[a] = 0.f;
+    for (int d0 = 0; d0 < D; d0 += kChunk) {
+      const int kc = min(kChunk, D - d0);
+      __syncthreads();
+      for (int i = tid; i < A * kc; i += kThreads) {
+        const int a = i / kc;
+        const int kk = i - a * kc;
+        chunk[a * kChunk + kk] = round_to(x[(tok0 + a) * D + d0 + kk], bf16);
       }
+      __syncthreads();
+      if (tid < 3 * hd) {
+        for (int kk = 0; kk < kc; ++kk) {
+          const float w = round_to(__ldg(w_qkv + static_cast<size_t>(d0 + kk) * D3 + col), bf16);
+#pragma unroll
+          for (int a = 0; a < MAXA; ++a)
+            if (a < A) p[a] = fmaf(chunk[a * kChunk + kk], w, p[a]);
+        }
+      }
+    }
+    if (tid < 3 * hd) {
       const float b = __ldg(b_qkv + col);
       float* dst = part == 0 ? qs : (part == 1 ? ks : vs);
 #pragma unroll
@@ -170,98 +216,68 @@ row_backward_kernel(const float* __restrict__ x,
       const int i = idx / A;
       const int j = idx - i * A;
       float s = 0.f;
-      for (int c = 0; c < hd; ++c) s = fmaf(qs[i * ld + c], ks[j * ld + c], s);
+      for (int cc = 0; cc < hd; ++cc) s = fmaf(qs[i * ld + cc], ks[j * ld + cc], s);
       ps[i * MAXA + j] = s;
     }
     __syncthreads();
 
     // softmax over the row's valid keys, one warp per query (P stays f32)
-    for (int i = warp; i < A; i += kThreads / 32) {
-      const bool ok = lane < A && valid[lane];
-      const float s = ok ? ps[i * MAXA + lane] : -INFINITY;
-      float m = s;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      const float e = ok ? expf(s - m) : 0.f;
-      float sum = e;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane < A) ps[i * MAXA + lane] = any_valid ? e / sum : 0.f;
-    }
+    for (int i = warp; i < A; i += kThreads / 32)
+      warp_masked_softmax64(ps + i * MAXA, valid, A, any_valid, 0);
     __syncthreads();
 
     // attention output o = P_c v (for dW_out) and dv = P_c^T da
     for (int idx = tid; idx < A * hd; idx += kThreads) {
       const int i = idx / hd;
-      const int c = idx - i * hd;
+      const int cc = idx - i * hd;
       float o = 0.f, dv = 0.f;
       for (int j = 0; j < A; ++j) {
-        o = fmaf(round_to(ps[i * MAXA + j], bf16), vs[j * ld + c], o);
-        dv = fmaf(round_to(ps[j * MAXA + i], bf16), das[j * D + h0 + c], dv);
+        o = fmaf(round_to(ps[i * MAXA + j], bf16), vs[j * ld + cc], o);
+        dv = fmaf(round_to(ps[j * MAXA + i], bf16), das[j * ld + cc], dv);
       }
-      attn[(tok0 + i) * D + h0 + c] = round_to(o, bf16);
-      dqkv[(tok0 + i) * D3 + 2 * D + h0 + c] = dv;
-      dvs[i * ld + c] = round_to(dv, bf16);
+      attn[(tok0 + i) * D + h0 + cc] = round_to(o, bf16);
+      dqkv[(tok0 + i) * D3 + 2 * D + h0 + cc] = dv;
     }
     // dP = da v^T and dS = P o (dP - rowsum(dP o P)), one warp per query
     for (int i = warp; i < A; i += kThreads / 32) {
-      float dp = 0.f;
-      const float p = lane < A ? ps[i * MAXA + lane] : 0.f;
-      if (lane < A)
-        for (int c = 0; c < hd; ++c) dp = fmaf(das[i * D + h0 + c], vs[lane * ld + c], dp);
-      float r = dp * p;
+      float dp[2], pr[2];
+      float r = 0.f;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int j = lane + 32 * t;
+        pr[t] = j < A ? ps[i * MAXA + j] : 0.f;
+        dp[t] = 0.f;
+        if (j < A)
+          for (int cc = 0; cc < hd; ++cc) dp[t] = fmaf(das[i * ld + cc], vs[j * ld + cc], dp[t]);
+        r += dp[t] * pr[t];
+      }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) r += __shfl_xor_sync(0xffffffffu, r, off);
-      if (lane < A) dss[i * MAXA + lane] = round_to(p * (dp - r), bf16);
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int j = lane + 32 * t;
+        if (j < A) dss[i * MAXA + j] = round_to(pr[t] * (dp[t] - r), bf16);
+      }
     }
     __syncthreads();
 
     // dq = dS k scale, dk = dS^T (q x scale)
     for (int idx = tid; idx < A * hd; idx += kThreads) {
       const int i = idx / hd;
-      const int c = idx - i * hd;
+      const int cc = idx - i * hd;
       float dq = 0.f, dk = 0.f;
       for (int j = 0; j < A; ++j) {
-        dq = fmaf(dss[i * MAXA + j], ks[j * ld + c], dq);
-        dk = fmaf(dss[j * MAXA + i], qs[j * ld + c], dk);
+        dq = fmaf(dss[i * MAXA + j], ks[j * ld + cc], dq);
+        dk = fmaf(dss[j * MAXA + i], qs[j * ld + cc], dk);
       }
-      dq *= scale;
-      dqkv[(tok0 + i) * D3 + h0 + c] = dq;
-      dqkv[(tok0 + i) * D3 + D + h0 + c] = dk;
-      dqs[i * ld + c] = round_to(dq, bf16);
-      dks[i * ld + c] = round_to(dk, bf16);
+      dqkv[(tok0 + i) * D3 + h0 + cc] = dq * scale;
+      dqkv[(tok0 + i) * D3 + D + h0 + cc] = dk;
     }
-    __syncthreads();
-
-    // this head's share of dx = dqkv_c . W_qkv^T
-#pragma unroll
-    for (int cc = 0; cc < kMaxCols; ++cc) {
-      const int n = tid + cc * kThreads;
-      if (n < D) {
-        for (int part = 0; part < 3; ++part) {
-          const float* src = part == 0 ? dqs : (part == 1 ? dks : dvs);
-          for (int c = 0; c < hd; ++c) {
-            const float w = round_to(
-                __ldg(w_qkv_t + static_cast<size_t>(part * D + h0 + c) * D + n), bf16);
-#pragma unroll
-            for (int a = 0; a < MAXA; ++a)
-              if (a < A) acc[cc][a] = fmaf(src[a * ld + c], w, acc[cc][a]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // q/k/v/P/dS/dq/dk/dv are overwritten by the next head
   }
 
-#pragma unroll
-  for (int cc = 0; cc < kMaxCols; ++cc) {
-    const int n = tid + cc * kThreads;
-    if (n < D) {
-#pragma unroll
-      for (int a = 0; a < MAXA; ++a)
-        if (a < A) dx[(tok0 + a) * D + n] = acc[cc][a];
-    }
-  }
+  // dx = dqkv_c . W_qkv^T over all heads (overwrites the parked dattn)
+  token_block_product(dqkv + tok0 * D3, D3, D3, w_qkv_t, dx + tok0 * D, A, D,
+                      chunk, bf16, false);
 }
 
 // C (M x N) = round(X)^T round(Y) for X (T x M), Y (T x N), row-major.
@@ -343,8 +359,8 @@ cudaError_t launch_rows(const float* x, const unsigned char* mask, const float* 
                         const float* w_out_t, float* dx, float* dqkv, float* attn,
                         int rows, int A, int D, int H, int bf16, cudaStream_t stream) {
   const int ld = D / H + 1;
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(MAXA) * D +
-                                       6 * MAXA * ld + 2 * MAXA * MAXA);
+  const size_t smem = sizeof(float) * (MAXA * kChunk + 4 * MAXA * ld +
+                                       2 * MAXA * MAXA);
   cudaError_t err = cudaFuncSetAttribute(row_backward_kernel<MAXA>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -373,14 +389,15 @@ cudaError_t launch_column_sum(const float* Y, float* out, int T, int N,
 // w_qkv (D, 3D), w_qkv_t (3D, D) = w_qkv^T, b_qkv (3D), w_out_t (D, D) =
 // w_out^T, all f32. Outputs dx (rows, A, D), dw_qkv (D, 3D), db_qkv (3D),
 // dw_out (D, D), db_out (D); scratch dqkv (rows*A, 3D) and attn (rows*A, D).
-// bf16 != 0 selects bf16 rounding. Returns the first cudaError_t of its four
-// launches (0 on success); nothing is launched for bad sizes.
+// bf16 != 0 selects bf16 rounding. Takes 1 <= A <= 64, D / num_heads <= 64
+// and D <= 512. Returns the first cudaError_t of its five launches (0 on
+// success); nothing is launched for bad sizes.
 extern "C" int fused_graph_attention_backward(
     const void* x, const void* mask, const void* g, const void* w_qkv,
     const void* w_qkv_t, const void* b_qkv, const void* w_out_t, void* dx,
     void* dqkv, void* attn, void* dw_qkv, void* db_qkv, void* dw_out,
     void* db_out, int rows, int A, int D, int num_heads, int bf16, void* stream) {
-  if (rows < 0 || A < 1 || A > 32 || num_heads < 1 || D % num_heads != 0 ||
+  if (rows < 0 || A < 1 || A > 64 || num_heads < 1 || D % num_heads != 0 ||
       D / num_heads > kMaxHeadDim || D > kMaxCols * kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* xf = static_cast<const float*>(x);
@@ -396,14 +413,10 @@ extern "C" int fused_graph_attention_backward(
   auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
   if (rows > 0) {
-    if (A <= 8)
-      err = launch_rows<8>(xf, m, gf, wq, wqt, bq, wot, dxf, dq, at, rows, A, D, num_heads, bf16, s);
-    else if (A <= 16)
-      err = launch_rows<16>(xf, m, gf, wq, wqt, bq, wot, dxf, dq, at, rows, A, D, num_heads, bf16, s);
-    else if (A <= 24)
-      err = launch_rows<24>(xf, m, gf, wq, wqt, bq, wot, dxf, dq, at, rows, A, D, num_heads, bf16, s);
-    else
+    if (A <= 32)
       err = launch_rows<32>(xf, m, gf, wq, wqt, bq, wot, dxf, dq, at, rows, A, D, num_heads, bf16, s);
+    else
+      err = launch_rows<64>(xf, m, gf, wq, wqt, bq, wot, dxf, dq, at, rows, A, D, num_heads, bf16, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int T = rows * A;

@@ -1,5 +1,6 @@
 """Fused graph attention: QKV projection, per-row masked multi-head attention
-and output projection (K1), and its backward (K2).
+and output projection (K1), its backward (K2), and the packed masked
+attention over precomputed q, k, v (K3).
 
 Port of ``crowdnav_prediction_attngraph_tpu/ops/masked_attention.py``:
   * ``fused_graph_attention`` (:495-515) with its ``custom_vjp``
@@ -14,7 +15,13 @@ Port of ``crowdnav_prediction_attngraph_tpu/ops/masked_attention.py``:
   * the backward TPU kernel ``_bwd_kernel`` (:298-411, via
     ``_fused_backward`` :414-492) becomes ``csrc/fused_graph_attention_bwd.cu``
     behind :func:`fused_graph_attention_backward`, with the plain version
-    :func:`reference_fused_graph_attention_backward`.
+    :func:`reference_fused_graph_attention_backward`;
+  * the TPU kernel ``_attn_kernel`` (:50-88, via ``packed_masked_attention``
+    :91-143) becomes ``csrc/packed_masked_attention.cu`` behind
+    :func:`packed_masked_attention`, and ``reference_masked_attention``
+    (:606-616) the plain version :func:`reference_masked_attention`. The JAX
+    K3 has no VJP, so neither has the port's: the wrapper raises where
+    autograd would need one.
 
 Gradients are those of the executed forward, in its compute dtype, as the
 JAX docstring of ``_fused_diffable`` says: the backward recomputes q, k, v
@@ -24,9 +31,9 @@ The wrappers run the plain versions only for tensors on the CPU. For CUDA
 tensors they launch the kernel or raise; they never fall back.
 
 An all-masked row (no valid key) is defined to have a zero attention output
-in both versions, so its result is ``b_out`` and its dx, dq, dk and dv are 0;
-valid rows never read it. Real callers never send one (the policy's mask
-keeps detected >= 1).
+in both versions, so K1's result there is ``b_out``, K2's dx, dq, dk and dv
+are 0, and K3's output is 0; valid rows never read it. Real callers never
+send one (the policy's mask keeps detected >= 1).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from . import _build
 
 KERNEL = "fused_graph_attention"
 KERNEL_BWD = "fused_graph_attention_bwd"
+KERNEL_ATTN = "packed_masked_attention"
 
 
 def _rounded(t: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
@@ -130,13 +138,15 @@ def reference_fused_graph_attention_backward(
 
 
 def _check(x, mask, num_heads, compute_dtype, **tensors):
-    """Shapes, devices and dtypes of K1's and K2's inputs: ``tensors`` are
-    named as in the signatures (w_qkv, b_qkv, w_out, b_out, g)."""
+    """Shapes, devices and dtypes of the kernels' inputs: ``tensors`` are
+    named as in the signatures (w_qkv, b_qkv, w_out, b_out, g; K3's k and v,
+    with q as ``x``)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (rows, A, D), got {tuple(x.shape)}")
     rows, A, D = x.shape
     shapes = {"mask": (rows, A), "w_qkv": (D, 3 * D), "b_qkv": (3 * D,),
-              "w_out": (D, D), "b_out": (D,), "g": (rows, A, D)}
+              "w_out": (D, D), "b_out": (D,), "g": (rows, A, D),
+              "k": (rows, A, D), "v": (rows, A, D)}
     for name, t in (("mask", mask), *tensors.items()):
         if tuple(t.shape) != shapes[name]:
             raise ValueError(f"{name} must be {shapes[name]}, "
@@ -155,15 +165,18 @@ def _check(x, mask, num_heads, compute_dtype, **tensors):
                         f"got {compute_dtype}")
 
 
-def _check_kernel(x, num_heads, tensors):
-    """What the CUDA kernels take: A <= 32, head dim <= 64, D <= 512, the
-    ``tensors`` given contiguous (w_out is laid out by the wrappers)."""
+def _check_kernel(x, num_heads, tensors, max_d=512):
+    """What the CUDA kernels take: 1 <= A <= 64, head dim <= 64, D <=
+    ``max_d``, the ``tensors`` given contiguous (K1's w_out is laid out by
+    the wrappers)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     rows, A, D = x.shape
-    if not 1 <= A <= 32 or D // num_heads > 64 or D > 512:
-        raise ValueError(f"the kernel takes A <= 32, head dim <= 64, D <= 512;"
-                         f" got A={A}, D={D}, heads={num_heads}")
+    if (not 1 <= A <= 64 or D // num_heads > 64
+            or (max_d is not None and D > max_d)):
+        limit = "" if max_d is None else f", D <= {max_d}"
+        raise ValueError(f"the kernel takes 1 <= A <= 64, head dim <= 64"
+                         f"{limit}; got A={A}, D={D}, heads={num_heads}")
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -201,7 +214,7 @@ def fused_graph_attention(x, mask, w_qkv, b_qkv, w_out, b_out,
     """K1 forward: (rows, A, D) -> (rows, A, D) float32, differentiable in
     x and the weights through :class:`FusedGraphAttention`.
 
-    CUDA tensors launch the Hopper kernels (A <= 32, D / num_heads <= 64,
+    CUDA tensors launch the Hopper kernels (A <= 64, D / num_heads <= 64,
     D <= 512; all contiguous but w_out, which may be any (D, D) view, such
     as an nn.Linear weight's ``.t()``); CPU tensors run the plain
     versions."""
@@ -221,7 +234,7 @@ def _launch_forward(x, mask, w_qkv, b_qkv, w_out, b_out, num_heads,
     rows, A, D = x.shape
     out = torch.empty_like(x)
     w_out = w_out.contiguous()          # the kernel reads (in, out) rows
-    fn = _kernel_fn(KERNEL, "fused_graph_attention_forward", 7)
+    fn = _kernel_fn(KERNEL, "fused_graph_attention_forward", 7, 5)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), mask.data_ptr(), w_qkv.data_ptr(),
@@ -262,7 +275,7 @@ def fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
     # weights along contiguous rows; w_out^T is no copy when w_out is the
     # transposed view of an nn.Linear weight, as the policy passes it
     w_qkv_t, w_out_t = w_qkv.t().contiguous(), w_out.t().contiguous()
-    fn = _kernel_fn(KERNEL_BWD, "fused_graph_attention_backward", 14)
+    fn = _kernel_fn(KERNEL_BWD, "fused_graph_attention_backward", 14, 5)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), mask.data_ptr(), g.data_ptr(), w_qkv.data_ptr(),
@@ -281,12 +294,62 @@ def fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
 fused_graph_attention_backward.launches = 0
 
 
-def _kernel_fn(name: str, symbol: str, n_pointers: int):
+def reference_masked_attention(q, k, v, mask, num_heads: int):
+    """Plain PyTorch K3: q, k, v (rows, A, D) f32; mask (rows, A) bool, True =
+    valid key. Per head softmax(q_h k_h^T / sqrt(hd), masked keys left out)
+    v_h, in f32; a row with no valid key gives 0."""
+    rows, A, D = q.shape
+    hd = D // num_heads
+    qh = q.reshape(rows, A, num_heads, hd)
+    kh = k.reshape(rows, A, num_heads, hd)
+    vh = v.reshape(rows, A, num_heads, hd)
+    logits = torch.einsum("rqhd,rkhd->rhqk", qh, kh) / math.sqrt(hd)
+    logits = logits.masked_fill(~mask[:, None, None, :], -math.inf)
+    w = torch.softmax(logits, dim=-1)
+    w = torch.where(mask.any(dim=-1)[:, None, None, None], w,
+                    torch.zeros_like(w))
+    return torch.einsum("rhqk,rkhd->rqhd", w, vh).reshape(rows, A, D)
+
+
+def packed_masked_attention(q, k, v, mask, num_heads: int):
+    """K3: (rows, A, D) f32 q, k, v and a (rows, A) bool key mask ->
+    (rows, A, D) f32. CUDA tensors launch the Hopper kernel (1 <= A <= 64,
+    D / num_heads <= 64, all contiguous); CPU tensors run
+    :func:`reference_masked_attention`. It has no backward, as the JAX K3
+    has none: with grad mode on, an input that requires grad raises."""
+    _check(q, mask, num_heads, torch.float32, k=k, v=v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("packed_masked_attention has no backward; call it "
+                           "under torch.no_grad() or on tensors that do not "
+                           "require grad")
+    if q.device.type == "cpu":
+        return reference_masked_attention(q, k, v, mask, num_heads)
+    _check_kernel(q, num_heads, {"q": q, "k": k, "v": v, "mask": mask},
+                  max_d=None)
+    rows, A, D = q.shape
+    out = torch.empty_like(q)
+    fn = _kernel_fn(KERNEL_ATTN, "packed_masked_attention_forward", 5, 4)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), rows, A, D, num_heads, stream)
+    if rc != 0:
+        raise RuntimeError(f"packed_masked_attention kernel launch failed: "
+                           f"cudaError {rc}")
+    packed_masked_attention.launches += 1
+    return out
+
+
+packed_masked_attention.launches = 0
+
+
+def _kernel_fn(name: str, symbol: str, n_pointers: int, n_ints: int):
     """The C entry ``symbol`` of ``csrc/<name>.cu``: ``n_pointers`` pointers,
-    then (rows, A, D, num_heads, bf16) and the stream."""
+    then ``n_ints`` ints ((rows, A, D, num_heads) and, for K1 and K2, bf16)
+    and the stream."""
     fn = getattr(_build.load(name), symbol)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn

@@ -21,6 +21,7 @@ import crowdnav_prediction_attngraph_tpu_torch.algo.gae
 import crowdnav_prediction_attngraph_tpu_torch.env.vector
 import crowdnav_prediction_attngraph_tpu_torch.utils.checkpoint
 import crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention
+import crowdnav_prediction_attngraph_tpu_torch.ops.bench_edges
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m.startswith("jaxlib") or m.startswith("flax")

@@ -16,6 +16,14 @@ tests/test_pallas_attention.py:245-246); bf16 max abs error <= 1e-2 x the
 largest entry of each gradient (tests/test_torch_masked_attention.py says
 why); an all-masked row's dx is exactly 0. Two runs give the same bits:
 the weight gradients are reduced in a fixed order, without atomics.
+
+K1 and K2 are held at A = 50 and 64 as well (their A <= 64 tier); both
+refuse A = 65.
+
+K3 tolerance: atol 2e-5 (the JAX kernel's own bound against its reference,
+tests/test_pallas_attention.py:15-26); an all-masked row is exactly 0 and
+leaves the other rows' bits alone; masked keys' v at 1e6 changes no bit
+(their softmax weight is exactly 0).
 """
 
 import math
@@ -25,7 +33,8 @@ import torch
 
 from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
     fused_graph_attention, fused_graph_attention_backward,
-    reference_fused_graph_attention, reference_fused_graph_attention_backward)
+    packed_masked_attention, reference_fused_graph_attention,
+    reference_fused_graph_attention_backward, reference_masked_attention)
 
 A, D, HEADS = 20, 512, 8
 
@@ -52,7 +61,7 @@ def k1_inputs(rows, a, seed, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,a", [(100, 20), (64, 20), (32, 20), (7, 32),
-                                    (3, 5)])
+                                    (3, 5), (7, 50), (3, 64)])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 3e-4),
                                         (torch.bfloat16, 3e-2)])
 def test_k1_matches_plain(cuda_device, rows, a, dtype, atol):
@@ -81,7 +90,7 @@ def test_k1_all_masked_row_isolation(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_k1_rejects_what_it_does_not_take(cuda_device):
-    args = k1_inputs(2, 33, 0, cuda_device)
+    args = k1_inputs(2, 65, 0, cuda_device)
     with pytest.raises(ValueError):
         fused_graph_attention(*args, HEADS)
     args = k1_inputs(2, A, 0, cuda_device)
@@ -110,7 +119,8 @@ def assert_k2_close(got, expect, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,a", [(100, 20), (7, 32), (3, 5)])
+@pytest.mark.parametrize("rows,a", [(100, 20), (7, 32), (3, 5), (7, 50),
+                                    (3, 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_matches_plain(cuda_device, rows, a, dtype):
     args = k2_inputs(rows, a, rows + a, cuda_device)
@@ -172,10 +182,59 @@ def test_w_out_as_a_linear_weight_view(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_k2_rejects_what_it_does_not_take(cuda_device):
-    args = k2_inputs(2, 33, 0, cuda_device)
+    args = k2_inputs(2, 65, 0, cuda_device)
     with pytest.raises(ValueError):
         fused_graph_attention_backward(*args, HEADS)
     args = k2_inputs(2, A, 0, cuda_device)
     with pytest.raises(ValueError):
         fused_graph_attention_backward(*args[:5], args[5].transpose(0, 1)
                                        .contiguous().transpose(0, 1), HEADS)
+
+
+def k3_inputs(rows, a, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn(rows, a, D, generator=g) for _ in range(3))
+    det = torch.randint(1, a + 1, (rows,), generator=g)
+    mask = torch.arange(a)[None, :] < det[:, None]
+    return [t.to(device) for t in (q, k, v, mask)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,a", [(100, 20), (7, 64), (3, 5)])
+def test_k3_matches_plain(cuda_device, rows, a):
+    args = k3_inputs(rows, a, rows + a, cuda_device)
+    before = packed_masked_attention.launches
+    got = packed_masked_attention(*args, HEADS)
+    torch.cuda.synchronize()
+    assert packed_masked_attention.launches == before + 1
+    expect = reference_masked_attention(*args, HEADS)
+    torch.testing.assert_close(got, expect, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_k3_all_masked_row_and_masked_keys(cuda_device):
+    q, k, v, mask = k3_inputs(8, A, 3, cuda_device)
+    out0 = packed_masked_attention(q, k, v, mask, HEADS)
+    mask1 = mask.clone()
+    mask1[3] = False
+    out1 = packed_masked_attention(q, k, v, mask1, HEADS)
+    assert torch.count_nonzero(out1[3]) == 0
+    keep = torch.arange(8, device=cuda_device) != 3
+    assert torch.equal(out1[keep], out0[keep])
+    v1 = torch.where(mask[..., None], v, torch.full_like(v, 1e6))
+    assert torch.equal(packed_masked_attention(q, k, v1, mask, HEADS), out0)
+
+
+@pytest.mark.cuda
+def test_k3_rejects_what_it_does_not_take(cuda_device):
+    q, k, v, mask = k3_inputs(2, 65, 0, cuda_device)
+    with pytest.raises(ValueError):
+        packed_masked_attention(q, k, v, mask, HEADS)
+    q, k, v, mask = k3_inputs(2, A, 0, cuda_device)
+    with pytest.raises(ValueError):
+        packed_masked_attention(q, k, v, mask, 4)       # head dim 128
+    with pytest.raises(ValueError):
+        packed_masked_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
+                                k, v, mask, HEADS)
+    with pytest.raises(RuntimeError):
+        packed_masked_attention(q.requires_grad_(True), k, v, mask, HEADS)

@@ -6,13 +6,16 @@ plain versions on the card by tests/test_torch_kernels_cuda.py.
   sums in another order);
 * plain K1 vs the JAX Pallas kernel in interpret mode, f32: atol 3e-4, the
   kernel's own bound (tests/test_pallas_attention.py:49);
+* the same at (rows, A) = (5, 50), the widest crowd of the repo's configs
+  (10-50 humans), where the card's kernels take their A <= 64 tier;
 * plain K1 in bf16 vs the JAX Pallas kernel in bf16 (interpret mode), same
   rounding points: atol 2e-2 (bf16 has 8 mantissa bits; sums are ordered
   differently, so a rounding may land one bf16 ulp apart);
 * an all-masked row outputs b_out and leaves every other row unchanged;
 * plain K2 vs the JAX backward kernel ``_fused_backward`` in interpret
   mode at the shapes of tests/test_pallas_attention.py:220-246, f32: all
-  five gradients to atol 5e-3 / rtol 1e-3, that test's own bound;
+  five gradients to atol 5e-3 / rtol 1e-3, that test's own bound, and the
+  same at (5, 50) (in bf16 too, to the bound below);
 * plain K2 in bf16 vs the same kernel run in bf16 (interpret mode runs it
   on the CPU), same rounding points: max abs error <= 1e-2 x the largest
   entry of each gradient (bf16 keeps 8 significant bits, 3.9e-3 relative
@@ -81,6 +84,16 @@ def test_plain_matches_jax_kernel_interpret(dtype, jdtype, atol):
     np.testing.assert_allclose(got.numpy(), expect, atol=atol)
 
 
+def test_plain_matches_jax_kernel_interpret_a50():
+    arrs = inputs(5, 50, seed=50)
+    expect = np.asarray(j_fused_graph_attention(
+        *[jnp.asarray(a) for a in arrs], 8, compute_dtype=jnp.float32,
+        interpret=True))
+    got = fused_graph_attention(*torch_args(arrs), 8,
+                                compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), expect, atol=3e-4)
+
+
 def test_wrapper_on_cpu_is_the_plain_version():
     args = torch_args(inputs(4, 20, seed=5))
     before = fused_graph_attention.launches
@@ -119,7 +132,8 @@ def cotangent(rows, A, D=512, seed=0):
         np.float32)
 
 
-@pytest.mark.parametrize("rows,A,r_blk", [(13, 20, None), (33, 20, 16)])
+@pytest.mark.parametrize("rows,A,r_blk", [(13, 20, None), (33, 20, 16),
+                                          (5, 50, None)])
 @pytest.mark.parametrize("dtype,jdtype", [(torch.float32, "f32"),
                                           (torch.bfloat16, "bf16")])
 def test_plain_backward_matches_jax_kernel_interpret(rows, A, r_blk, dtype,

@@ -1,6 +1,7 @@
 """The port's ``train`` CLI end to end on the CPU at a tiny size: 4 humans,
 attn_size 64, 4 envs, 5 steps per update, 2 updates, then a resume for two
-more, then the port's ``test`` CLI on the params ``.npz`` it wrote.
+more, then the port's ``test`` CLI on the params ``.npz`` it wrote, and on
+the run's own checkpoints when no ``--params`` is given.
 
 The time limit is cut to 2.5 s so that episodes end inside the run (the
 progress row is written only once episodes have finished, as in the JAX
@@ -116,3 +117,41 @@ def test_checkpoint_round_trip_restores_optimizer_and_generators(tiny,
                                ts.optimizer.state[q][key])
     assert torch.equal(fresh.generator.get_state(), saved["generator"])
     assert fresh.schedule.get_last_lr() == ts.schedule.get_last_lr()
+
+
+def test_test_cli_scores_the_runs_own_checkpoints(tiny, tmp_path,
+                                                  monkeypatch):
+    out = str(tmp_path / "run")
+    train_cli.main(ARGS + ["--output-dir", out, "--num-env-steps", "40",
+                           "--eval-interval", "0"])
+    ckpt = os.path.join(out, "checkpoints")
+    assert checkpoint.latest_step(ckpt) == 1
+    loaded = []
+
+    def record(cfg, params, device):
+        loaded.append(params)
+        return t_policy.load_policy(cfg, params, device)
+    monkeypatch.setattr(test_cli, "load_policy", record)
+    common = ["--model-dir", out, "--test-case-size", "2", "--device", "cpu",
+              "--out-dir", str(tmp_path / "eval")]
+
+    # no --params: the run's latest checkpoint, and the log named by it
+    res = test_cli.main(common)
+    assert np.isfinite(res["success_rate"]) and res["env_steps"] > 0
+    assert loaded == [os.path.join(ckpt, "00001.npz")]
+    assert os.listdir(tmp_path / "eval" / "test") == ["test_00001.log"]
+    # --ckpt-step picks an earlier one
+    test_cli.main(common + ["--ckpt-step", "0"])
+    assert loaded[-1] == os.path.join(ckpt, "00000.npz")
+    assert os.path.exists(tmp_path / "eval" / "test" / "test_00000.log")
+
+    # neither checkpoints nor --params, and not the flagship run: an error
+    # before anything is scored
+    other = tmp_path / "other"
+    other.mkdir()
+    with pytest.raises(SystemExit, match="--params"):
+        test_cli.main(["--model-dir", str(other), "--device", "cpu"])
+    assert len(loaded) == 2
+    # the flagship run scores its committed export, step 10250
+    assert test_cli.resolve_params(test_cli.DEFAULT_MODEL_DIR) == (
+        test_cli.DEFAULT_PARAMS, 10250)
