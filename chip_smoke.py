@@ -12,12 +12,14 @@ Phases, each printing one JSON line with its seconds before the next starts:
 3. kernels: holds K1 (fused graph attention) against its plain PyTorch
    version on the card at every shape the paths give it (rows = 32 for the
    evaluation's cases, 64 for the rollout's envs, 960 for the update's
-   minibatch; A = 20 humans, D = 512, 8 heads) and at rows = 960, A = 50
-   (the widest crowd of the repo's configs), in f32 (atol 3e-4) and bf16
-   (atol 3e-2), with an all-masked row checked for isolation, and in bf16
-   at the edges/s bench's own inputs (``bench_edges.sweep_inputs``: rows
-   480, 1920 and 7680, x scaled by 0.3); holds K2 (its
-   backward) against its plain version at the update's shape and at A = 50
+   minibatch; A = 20 humans, D = 512, 8 heads), at rows = 960, A = 50
+   (the widest crowd of the repo's configs) and at rows = 960, A = 80 (past
+   the kernels' single-chunk attention), in f32 (atol 3e-4) and bf16
+   (atol 3e-2), with a second run that must give the same bits and an
+   all-masked row checked for isolation, and in bf16 at the edges/s
+   bench's own inputs (``bench_edges.sweep_inputs``: rows 480, 1920 and
+   7680, x scaled by 0.3), timed there too; holds K2 (its backward)
+   against its plain version at the update's shape and at A = 50 and 80
    in f32 (atol 5e-3 / rtol 1e-3) and bf16 (max abs error <= 1e-2 x the
    largest entry of each gradient), with an all-masked row whose dx must be
    0 and a second run that must give the same bits; holds K3 (packed masked
@@ -26,7 +28,10 @@ Phases, each printing one JSON line with its seconds before the next starts:
    (7, 64) to atol 2e-5, with an all-masked row that must be exactly 0 and
    leave the other rows' bits alone, and masked keys whose v at 1e6 must
    change no bit; times each beside its plain version, its bound and a
-   PyTorch library call or composition;
+   PyTorch library call or composition (the median over 5 groups of
+   back-to-back calls, each group between one pair of CUDA events), and
+   reads the device kernels behind one call of each from a torch.profiler
+   trace;
 4. evaluate: loads the committed weights and runs the port's seeded
    evaluation of the flagship pair (trained_models/
    GST_predictor_rand_tpu_r5_selfgst, test cases 0..31 as one batch, K1 in
@@ -55,8 +60,11 @@ Phases, each printing one JSON line with its seconds before the next starts:
    ``single_device``, K1 once per such call of ``fused_sweep`` at each row
    count, K2 never).
 
-The last two lines are the kernels line ({"kernels": [...]}) and
-{"ok": true, "device": {...}}. Nothing falls back to the CPU: a phase that
+The kernels line also gives each kernel's device launches per call and the
+registers and spills that ptxas reported for each of its CUDA functions.
+
+The last three lines are the kernels line ({"kernels": [...]}), the card's
+name and power limit, and {"ok": true, "device": {...}}. Nothing falls back to the CPU: a phase that
 fails ends the run with a non-zero exit code and no result line.
 """
 
@@ -66,6 +74,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -102,6 +111,7 @@ TRAIN_ITERS = 2
 K1_ROWS = (N_CASES, 64, 960)
 A, D, HEADS = 20, 512, 8
 A_WIDE = 50            # the widest crowd of the repo's configs (10-50 humans)
+A_PAST = 80            # past K1's and K2's single-chunk attention (A <= 64)
 # K3 at the edges/s bench's shape, then at the wide crowd and the limit
 K3_SHAPES = ((4096, 20), (960, A_WIDE), (7, 64))
 K3_ATOL = 2e-5
@@ -164,20 +174,72 @@ def k3_inputs(rows: int, a: int, seed: int, device):
     return q, k, v, mask
 
 
-def time_ms(fn, reps: int = 30) -> float:
-    """Median of per-call CUDA-event times after a warm-up."""
+def time_ms(fn, reps: int = 30, groups: int = 5) -> float:
+    """Median over ``groups`` of the mean time of ``reps`` back-to-back
+    calls between one pair of CUDA events, after a warm-up (per-call events
+    would read the launch gaps of a ~0.05 ms call)."""
     for _ in range(3):
         fn()
-    times = []
-    for _ in range(reps):
+    per_call = []
+    for _ in range(groups):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        per_call.append(start.elapsed_time(end) / reps)
+    return statistics.median(per_call)
+
+
+def device_kernels(fn) -> list:
+    """The names of the device kernels one call of ``fn`` launches, read
+    from a torch.profiler trace of that call (after a warm-up call); None
+    if the trace holds no device activity."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:  # the trace is a report, not a check
+        print(f"chip_smoke: profiler unavailable: {exc}", file=sys.stderr)
+        return None
+    return names or None
+
+
+def ptxas_summary(report: str) -> dict:
+    """{kernel: "N registers, S bytes spill stores, L bytes spill loads"}
+    from nvcc's -Xptxas -v report of one source."""
+    out, name, spill = {}, None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"{m.group(1)} bytes spill stores, {m.group(2)} bytes " \
+                    f"spill loads"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = f"{m.group(1)} registers, {spill}"
+            name, spill = None, ""
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(out),
+                               capture_output=True, text=True, timeout=30,
+                               check=True).stdout.splitlines()
+        if len(names) == len(out):
+            return dict(zip(names, out.values()))
+    except (OSError, subprocess.SubprocessError):
+        pass
+    return out
 
 
 def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
@@ -275,6 +337,10 @@ def check_k1(rows: int, device, a: int = A) -> dict:
         if not math.isfinite(err) or err > ATOL[dtype]:
             fail(f"K1 {tag} rows={rows}: max abs err {err} > {ATOL[dtype]}")
         res[f"max_abs_err_{tag}"] = err
+        if not torch.equal(got, fused_graph_attention(*args, HEADS,
+                                                      compute_dtype=dtype)):
+            fail(f"K1 {tag} rows={rows} A={a}: two runs on the same inputs "
+                 f"differ")
         # all-masked row: output b_out, other rows untouched
         x, mask = args[0].clone(), args[1].clone()
         mask[1] = False
@@ -300,19 +366,28 @@ def check_k1(rows: int, device, a: int = A) -> dict:
 
 def check_k1_edges(device) -> dict:
     """K1 (bf16, as the edges path runs it) against its plain version at
-    each of ``fused_sweep``'s inputs: {rows: max abs error}."""
-    errs = {}
+    each of ``fused_sweep``'s inputs, timed beside the plain version, the
+    library composition and the bound: {rows: {...}}."""
+    bf16 = torch.bfloat16
+    res = {}
     for rows, args in bench_edges.sweep_inputs(device=device):
-        got = fused_graph_attention(*args, HEADS, compute_dtype=torch.bfloat16)
+        got = fused_graph_attention(*args, HEADS, compute_dtype=bf16)
         torch.cuda.synchronize()
-        expect = reference_fused_graph_attention(
-            *args, HEADS, compute_dtype=torch.bfloat16)
+        expect = reference_fused_graph_attention(*args, HEADS,
+                                                 compute_dtype=bf16)
         err = (got - expect).abs().max().item()
-        if not math.isfinite(err) or err > ATOL[torch.bfloat16]:
+        if not math.isfinite(err) or err > ATOL[bf16]:
             fail(f"K1 bf16 at the edges path's rows={rows}: max abs err {err}"
-                 f" > {ATOL[torch.bfloat16]}")
-        errs[rows] = err
-    return errs
+                 f" > {ATOL[bf16]}")
+        row = {"max_abs_err": err,
+               "ms": time_ms(lambda: fused_graph_attention(
+                   *args, HEADS, compute_dtype=bf16), reps=10),
+               "plain_ms": time_ms(lambda: reference_fused_graph_attention(
+                   *args, HEADS, compute_dtype=bf16), reps=10),
+               "library_ms": time_ms(k1_library(*args, bf16), reps=10)}
+        row["bound_ms"], row["bound_by"] = k1_bound_ms(rows, bf16)
+        res[rows] = row
+    return res
 
 
 def check_k2(rows: int, device, a: int = A) -> dict:
@@ -625,8 +700,7 @@ def main() -> int:
     names = [masked_attention.KERNEL, masked_attention.KERNEL_BWD,
              masked_attention.KERNEL_ATTN]
     reports = _build.build(names)
-    ptxas = {k: [ln for ln in v.splitlines() if "registers" in ln
-                 or "spill" in ln] for k, v in reports.items()}
+    ptxas = {k: ptxas_summary(v) for k, v in reports.items()}
     emit("build", t0, kernels=names, ptxas=ptxas)
 
     t0 = time.perf_counter()
@@ -634,14 +708,33 @@ def main() -> int:
     # envs) and the update's minibatch (30 steps x 32 envs)
     k1 = {rows: check_k1(rows, device) for rows in K1_ROWS}
     k1_wide = check_k1(960, device, A_WIDE)
+    k1_past = check_k1(960, device, A_PAST)
     k1_edges = check_k1_edges(device)
     k2 = check_k2(960, device)
     k2_wide = check_k2(960, device, A_WIDE)
+    k2_past = check_k2(960, device, A_PAST)
     # K3 timed at the bench's shape only
     k3 = [check_k3(rows, a, device, timed=(i == 0))
           for i, (rows, a) in enumerate(K3_SHAPES)]
-    emit("kernels", t0, k1=k1, k1_a50=k1_wide,
-         k1_edges_max_abs_err_bf16=k1_edges, k2=k2, k2_a50=k2_wide, k3=k3)
+    # the device kernels behind one wrapper call, at the entries' shapes
+    k1_args = k1_inputs(N_CASES, seed=0, device=device)
+    k2_args = k1_inputs(960, seed=0, device=device)[:5] + [
+        torch.randn(960, A, D, device=device)]
+    q, k, v, mask = k3_inputs(*K3_SHAPES[0], 0, device)
+    dev_kernels = {
+        "K1_fused_graph_attention": {tag: device_kernels(
+            lambda: fused_graph_attention(*k1_args, HEADS, compute_dtype=dt))
+            for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
+        "K2_fused_graph_attention_backward": {tag: device_kernels(
+            lambda: fused_graph_attention_backward(*k2_args, HEADS,
+                                                   compute_dtype=dt))
+            for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
+        "K3_packed_masked_attention": {"f32": device_kernels(
+            lambda: packed_masked_attention(q, k, v, mask, HEADS))},
+    }
+    emit("kernels", t0, k1=k1, k1_a50=k1_wide, k1_a80=k1_past,
+         k1_edges=k1_edges, k2=k2, k2_a50=k2_wide, k2_a80=k2_past, k3=k3,
+         device_kernels=dev_kernels)
 
     cfg = config_from_snapshot(os.path.join(MODEL_DIR, "config.json"))
     gst = load_gst(cfg.pred, DEFAULT_GST_PARAMS, device)
@@ -650,6 +743,12 @@ def main() -> int:
     edges_launches, edges_sweep = phase_edges(device)
     path_launches = {"evaluate": eval_launches, "train": train_launches,
                      "edges": edges_launches}
+
+    def per_call(name):
+        return {"device_launches_per_call": {
+                    tag: None if names is None else len(names)
+                    for tag, names in dev_kernels[name].items()},
+                "device_kernels": dev_kernels[name]}
 
     def entry(name, source, replaces, m, shape, paths):
         by_path = {p: path_launches[p][name] for p in paths}
@@ -667,6 +766,8 @@ def main() -> int:
             "bound_by": m["bound_by_bf16"],
             "library_ms": m["library_ms_bf16"],
             "f32": {k[:-4]: v for k, v in m.items() if k.endswith("_f32")},
+            **per_call(name),
+            "ptxas": ptxas.get(source[:-3], {}),
         }
     k1_entry = entry("K1_fused_graph_attention", "fused_graph_attention.cu",
                      175, k1[N_CASES], {"rows": N_CASES},
@@ -674,13 +775,17 @@ def main() -> int:
     for rows in K1_ROWS[1:]:
         k1_entry[f"rows{rows}"] = k1[rows]
     k1_entry[f"rows960_a{A_WIDE}"] = k1_wide
-    k1_entry["edges_max_abs_err_bf16"] = k1_edges
+    k1_entry[f"rows960_a{A_PAST}"] = k1_past
+    k1_entry["edges_max_abs_err_bf16"] = {r: e["max_abs_err"]
+                                          for r, e in k1_edges.items()}
+    k1_entry["edges_sweep_rows"] = k1_edges
     k1_entry["edges_fused_sweep_ms"] = edges_sweep
     k2_entry = entry("K2_fused_graph_attention_backward",
                      "fused_graph_attention_bwd.cu", 298, k2, {"rows": 960},
                      ("evaluate", "train"))
     k2_entry["max_abs_err_by_grad_bf16"] = k2["max_abs_err_by_grad_bf16"]
     k2_entry[f"rows960_a{A_WIDE}"] = k2_wide
+    k2_entry[f"rows960_a{A_PAST}"] = k2_past
     k3_by_path = {"edges": edges_launches["K3_packed_masked_attention"]}
     k3_entry = {
         "name": "K3_packed_masked_attention", "route": "cuda",
@@ -696,6 +801,8 @@ def main() -> int:
                                        "library_max_abs_err")},
         "max_abs_err_by_shape": {f"rows{r['rows']}_a{r['A']}":
                                  r["max_abs_err"] for r in k3},
+        **per_call("K3_packed_masked_attention"),
+        "ptxas": ptxas.get(masked_attention.KERNEL_ATTN, {}),
     }
     print(json.dumps({"kernels": [k1_entry, k2_entry, k3_entry]}), flush=True)
     print(nvidia_smi(), flush=True)

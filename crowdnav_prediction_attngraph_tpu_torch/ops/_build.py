@@ -53,25 +53,32 @@ def _target(name: str) -> str:
 def build(names: Iterable[str]) -> Dict[str, str]:
     """Compile every named source that has no up-to-date library, one
     ``nvcc`` process per source, all started together. Returns
-    {name: ptxas report}; raises with nvcc's stderr if a build fails."""
+    {name: ptxas report} (kept beside each library, so a source built
+    earlier reports too); raises with nvcc's stderr if a build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
+    procs, reports = {}, {}
     for name in names:
         target = _target(name)
         if os.path.exists(target):
+            report = target + ".ptxas.txt"
+            if os.path.exists(report):
+                with open(report) as f:
+                    reports[name] = f.read()
             continue
         tmp = f"{target}.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.PIPE, text=True),
                        tmp, target)
-    reports, failed = {}, []
+    failed = []
     for name, (proc, tmp, target) in procs.items():
         out, err = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n"
                           f"{out}{err}")
             continue
+        with open(target + ".ptxas.txt", "w") as f:
+            f.write(err)
         os.replace(tmp, target)
         reports[name] = err
     if failed:

@@ -14,418 +14,748 @@
 // softmax weights P, dattn = g . W_out^T, dS, the attention output and dqkv
 // are rounded to bf16 where `_bwd_kernel` casts; every product accumulates
 // in f32 and the bias gradients sum f32 values. A row with no valid key has
-// a zero attention output, so its dq, dk, dv and dx are 0.
+// a zero attention output, so its dq, dk, dv and dx are exactly 0.
 //
-// Two passes, because blocks on the card run in parallel and in no order
-// (the TPU's sequential grid accumulated the weight gradients across grid
-// steps for free):
+// What bounds it: ~22 T D^2 FLOP of products over T = rows x A tokens (the
+// q/k/v recompute 6, dattn 2, dx 6, dW_qkv 6, dW_out 2; 110 GFLOP at
+// 960 x 20, D = 512) against 12 rows A^2 D of attention (2.1% of it at
+// A = 20): the tensor-core rate at large rows.
 //
-//  A. one block of 256 threads per row (one env-timestep's A <= 64 agents,
-//     row_backward_kernel): dattn = g . W_out^T for all heads, then per head
-//     the q/k/v recompute, the masked softmax (one warp per query), the
-//     attention output, dv = P^T da, dS = P o (dP - rowsum(dP o P)),
-//     dq = dS k scale and dk = dS^T q, and at the end dx = dqkv . W_qkv^T.
-//     It writes dx, and dqkv (f32) and the rounded attention output to
-//     scratch the wrapper allocates.
-//  B. the weight gradients dW_qkv = X^T dQKV and dW_out = Attn^T G as
-//     shared-memory-tiled products over all rows x A tokens, one block per
-//     64 x 64 output tile looping over every token in a fixed order, and the
-//     bias gradients as column sums reduced in a fixed order. No float
-//     atomics: two runs on the same inputs give the same bits.
+// Design, one launch per stage, in this order on the caller's stream:
+//   1. f32 -> bf16 copies of x, g, W_qkv and W_out (bf16 mode only);
+//   2. qkv = x . W_qkv + b (epilogue: round, q x scale_c, round) and
+//   3. dattn = g . W_out^T, both with the tiled tensor-core product of
+//      tc_gemm.cuh (the f32 mode runs its CUDA-core FMA variant);
+//   4. the attention backward, one block per (row, head): in bf16 with
+//      A <= 64 and head dim % 16 == 0 (the paths' shapes) every small
+//      product on mma.sync; otherwise on CUDA cores, where A <= 64 keeps the
+//      row-head's q, k, v, dattn, P and dS resident and computes P
+//      (softmax64.cuh), the rounded attention output, dv, dP, dS, dq x scale
+//      and dk once each, and 64 < A <= 256 works in chunks of 32
+//      queries and keys: a pass for each query's softmax max, sum and
+//      rowsum(dP o P), a query-side pass (attention output, dq) and a
+//      key-side pass (dk, dv), recomputing the logits each time. It writes
+//      dqkv in the compute type (for the products) and, for the bias sums,
+//      in f32 per token (CUDA-core kernels) or as each row's f32 sums over
+//      its tokens (the tensor-core kernel of the bf16, A <= 64 case);
+//   5. dx = dqkv . W_qkv^T with the same product;
+//   6. dW_qkv = x^T . dqkv and dW_out = attn^T . g, one launch of the
+//      product for both: their K is the token count and their outputs are
+//      small, so each 128 x 64 tile's block splits its K loop over four
+//      warp groups and adds their sums in group order;
+//   7./8. db_qkv and db_out: column sums over 16 token slices, then the
+//      slices' sums added in order.
+// Device launches per call: 8 in bf16, 7 in f32. No split-K across blocks
+// and no float atomics: two runs on the same inputs give the same bits.
 //
-// What bounds it: at the update's shape (rows = 960, A = 20, D = 512) the
-// work is ~22 T D^2 FLOP (T = rows x A tokens: the q/k/v recompute, dattn,
-// dx, and the two weight products), so it is compute-bound. This first
-// version runs every product on CUDA-core FMAs; pass A reads the weights
-// through L2 once per row (the wrapper passes W_qkv^T and W_out^T so those
-// reads are along contiguous rows). Tensor cores (wgmma), weight tiles in
-// shared memory and several rows per block are left to a later version.
+// Limits: 1 <= A <= 256, head dim <= 128, D % 8 == 0 (16-byte copies).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attention_rows.cuh"
 #include "softmax64.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxHeadDim = 64;
-constexpr int kMaxCols = 2;  // columns per thread in pass A: D <= 512
-constexpr int kChunk = 64;   // features staged at a time in pass A
+using tc::bf16;
 
-// Y (A x N) = round(X) . round(W) for X (A x K, row stride ldx) and W
-// (K x N), both row-major in device memory; Y rounded if round_out. Thread t
-// owns columns t and t + kThreads for 32 tokens at a time; X is staged in
-// `chunk` (32 x kChunk), kChunk of its columns at a time. X may have
-// been written by this block: it is read with plain loads after a barrier.
-__device__ void token_block_product(const float* X, int ldx, int K,
-                                    const float* __restrict__ W, float* Y,
-                                    int A, int N, float* chunk, int bf16,
-                                    bool round_out) {
-  const int tid = threadIdx.x;
-  for (int t0 = 0; t0 < A; t0 += 32) {
-    const int nt = min(32, A - t0);
-    float acc[kMaxCols][32];
-#pragma unroll
-    for (int cc = 0; cc < kMaxCols; ++cc)
-#pragma unroll
-      for (int a = 0; a < 32; ++a) acc[cc][a] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kChunk) {
-      const int kc = min(kChunk, K - k0);
-      __syncthreads();  // the previous chunk is read; X is complete
-      for (int i = tid; i < nt * kc; i += kThreads) {
-        const int a = i / kc;
-        const int kk = i - a * kc;
-        chunk[a * kChunk + kk] =
-            round_to(X[static_cast<size_t>(t0 + a) * ldx + k0 + kk], bf16);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int cc = 0; cc < kMaxCols; ++cc) {
-        const int n = tid + cc * kThreads;
-        if (n < N) {
-          for (int kk = 0; kk < kc; ++kk) {
-            const float w = round_to(__ldg(W + static_cast<size_t>(k0 + kk) * N + n), bf16);
-#pragma unroll
-            for (int a = 0; a < 32; ++a)
-              if (a < nt) acc[cc][a] = fmaf(chunk[a * kChunk + kk], w, acc[cc][a]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int cc = 0; cc < kMaxCols; ++cc) {
-      const int n = tid + cc * kThreads;
-      if (n < N) {
-#pragma unroll
-        for (int a = 0; a < 32; ++a)
-          if (a < nt)
-            Y[static_cast<size_t>(t0 + a) * N + n] =
-                round_out ? round_to(acc[cc][a], bf16) : acc[cc][a];
-      }
-    }
-  }
-}
+constexpr int kThreads = 128;       // resident attention kernel (A <= 64)
+constexpr int kThreadsChunk = 256;  // chunked attention kernel (A > 64)
+constexpr int kChunk = 32;          // queries / keys per chunk when A > 64
+constexpr int kMaxA = 256;
+constexpr int kMaxHeadDim = 128;
 
-// Pass A: one block of 256 threads per row (one env-timestep's A <= MAXA
-// agents). Staging the row's x and g in f32 would take 2 x 64 x 512 x 4 B =
-// 256 KiB at A = 64, more than the 227 KiB a block may use, so the block
-// keeps only the current head resident (q, k, v, its dattn columns, P, dS
-// and a staging chunk: 113 KiB at MAXA = 64, 49 KiB at MAXA = 32) and
-//  * computes dattn = g_c . W_out^T_c for all heads first, 32 tokens at a
-//    time, and parks it (rounded) in the row's dx, which is written last;
-//  * re-reads x from L2 for each head's q/k/v recompute, kChunk features at
-//    a time;
-//  * writes dq, dk and dv only to the dqkv scratch, and at the end computes
-//    dx = dqkv_c . W_qkv^T from there, 32 tokens at a time.
-// Every sum runs in a fixed order, without atomics. MAXA is the tier of
-// token slots that the unrolled loops run over (32 for A <= 32, else 64).
-template <int MAXA>
+// A <= 64: one block per (head, row) with everything resident.
+// qkv (T, 3D): q x scale_c, k, v (rounded); da (T, D): dattn (rounded).
+// Writes dqkv (T, 3D) f32, its copy in T when T is bf16 (dqkv_c), and the
+// rounded attention output attn (T, D). Dot products read float4 rows;
+// the products over tokens run four columns a thread.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-row_backward_kernel(const float* __restrict__ x,
-                    const unsigned char* __restrict__ mask,
-                    const float* __restrict__ g,
-                    const float* __restrict__ w_qkv,
-                    const float* __restrict__ w_qkv_t,
-                    const float* __restrict__ b_qkv,
-                    const float* __restrict__ w_out_t,
-                    float* __restrict__ dx, float* __restrict__ dqkv,
-                    float* __restrict__ attn, int A, int D, int H, int bf16) {
-  extern __shared__ float smem[];
-  const int hd = D / H;
-  const int ld = hd + 1;  // padded stride: rows fall in distinct banks
-  const int D3 = 3 * D;
-  float* chunk = smem;                // MAXA x kChunk: x, g or dqkv columns
-  float* qs = chunk + MAXA * kChunk;  // A x ld: q x scale (rounded)
-  float* ks = qs + MAXA * ld;         // A x ld: k (rounded)
-  float* vs = ks + MAXA * ld;         // A x ld: v (rounded)
-  float* das = vs + MAXA * ld;        // A x ld: this head's dattn (rounded)
-  float* ps = das + MAXA * ld;        // MAXA x MAXA: P (f32)
-  float* dss = ps + MAXA * MAXA;      // MAXA x MAXA: dS (rounded)
-  __shared__ unsigned char valid[MAXA];
-  __shared__ int any_valid;
+attention_backward_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
+                          const unsigned char* __restrict__ mask, float* __restrict__ dqkv,
+                          T* __restrict__ dqkv_c, T* __restrict__ attn, int A, int D, int H,
+                          float scale) {
+  constexpr int kBf16 = std::is_same<T, bf16>::value;
+  extern __shared__ __align__(16) float smem[];
+  const int hd = D / H, hd4 = padded_head_dim(hd), ld = row_pitch(hd), D3 = 3 * D;
+  const int n4 = hd4 / 4;
+  const int h0 = blockIdx.x * hd;
+  const int pld = (A + 3) & ~3;  // P's and dS's pitch
+  float* qs = smem;            // A x ld
+  float* ks = qs + A * ld;
+  float* vs = ks + A * ld;
+  float* das = vs + A * ld;
+  float* ps = das + A * ld;    // A x pld: P (f32)
+  float* dss = ps + A * pld;   // A x pld: dS (rounded)
+  __shared__ unsigned char valid[64];
 
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float scale = 1.f / sqrtf(static_cast<float>(hd));
-  const float scale_c = round_to(scale, bf16);
-  const size_t tok0 = static_cast<size_t>(row) * A;  // first token of the row
-  float* dattn = dx + tok0 * D;  // parked in the row's dx until the end
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t tok0 = static_cast<size_t>(blockIdx.y) * A;
+  int mine = 0;
+  for (int j = tid; j < A; j += kThreads) {
+    valid[j] = mask[tok0 + j] != 0;
+    mine |= valid[j];
+  }
+  const T* base = qkv + tok0 * D3 + h0;
+  load_rows(qs, ld, base, D3, A, hd, kThreads);
+  load_rows(ks, ld, base + D, D3, A, hd, kThreads);
+  load_rows(vs, ld, base + 2 * D, D3, A, hd, kThreads);
+  load_rows(das, ld, da + tok0 * D + h0, D, A, hd, kThreads);
+  const int any_valid = __syncthreads_or(mine);
 
-  if (tid < MAXA) valid[tid] = (tid < A) ? (mask[tok0 + tid] != 0) : 0;
+  for (int idx = tid; idx < A * A; idx += kThreads) {
+    const int i = idx / A, j = idx - i * A;
+    ps[i * pld + j] = dot_rows(qs + i * ld, ks + j * ld, hd4);
+  }
   __syncthreads();
-  if (tid == 0) {
-    int any = 0;
-    for (int j = 0; j < A; ++j) any |= valid[j];
-    any_valid = any;
-  }
+  for (int i = warp; i < A; i += kThreads / 32)
+    warp_masked_softmax64(ps + i * pld, valid, A, any_valid, 0);
+  __syncthreads();
 
-  token_block_product(g + tok0 * D, D, D, w_out_t, dattn, A, D, chunk, bf16, true);
-
-  for (int h = 0; h < H; ++h) {
-    const int h0 = h * hd;
-    __syncthreads();  // dattn is complete; the last head's buffers are read
-    for (int i = tid; i < A * hd; i += kThreads) {
-      const int a = i / hd;
-      const int c = i - a * hd;
-      das[a * ld + c] = dattn[static_cast<size_t>(a) * D + h0 + c];
+  // attention output o = P_c v (for dW_out) and dv = P_c^T da
+  for (int idx = tid; idx < A * n4; idx += kThreads) {
+    const int i = idx / n4, c = (idx - i * n4) * 4;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f), dv = o;
+    for (int j = 0; j < A; ++j) {
+      axpy4(o, round_to(ps[i * pld + j], kBf16), vs + j * ld + c);
+      axpy4(dv, round_to(ps[j * pld + i], kBf16), das + j * ld + c);
     }
-    // recompute q_h x scale, k_h, v_h: thread t < 3*hd owns one column
-    const int part = tid / hd;
-    const int c = tid - part * hd;
-    const int col = part * D + h0 + c;
-    float p[MAXA];
+    store4(attn + (tok0 + i) * D + h0 + c, c, hd, o);
+    const size_t at = (tok0 + i) * D3 + 2 * D + h0 + c;
+    store4(dqkv + at, c, hd, dv);
+    if (kBf16) store4(dqkv_c + at, c, hd, dv);
+  }
+  // dP = da v^T and dS = P o (dP - rowsum(dP o P)), one warp per query
+  for (int i = warp; i < A; i += kThreads / 32) {
+    float dp[2], pr[2];
+    float r = 0.f;
 #pragma unroll
-    for (int a = 0; a < MAXA; ++a) p[a] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += kChunk) {
-      const int kc = min(kChunk, D - d0);
-      __syncthreads();
-      for (int i = tid; i < A * kc; i += kThreads) {
-        const int a = i / kc;
-        const int kk = i - a * kc;
-        chunk[a * kChunk + kk] = round_to(x[(tok0 + a) * D + d0 + kk], bf16);
+    for (int t = 0; t < 2; ++t) {
+      const int j = lane + 32 * t;
+      pr[t] = j < A ? ps[i * pld + j] : 0.f;
+      dp[t] = j < A ? dot_rows(das + i * ld, vs + j * ld, hd4) : 0.f;
+      r += dp[t] * pr[t];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) r += __shfl_xor_sync(0xffffffffu, r, off);
+#pragma unroll
+    for (int t = 0; t < 2; ++t) {
+      const int j = lane + 32 * t;
+      if (j < A) dss[i * pld + j] = round_to(pr[t] * (dp[t] - r), kBf16);
+    }
+  }
+  __syncthreads();
+
+  // dq = dS k scale, dk = dS^T (q x scale)
+  for (int idx = tid; idx < A * n4; idx += kThreads) {
+    const int i = idx / n4, c = (idx - i * n4) * 4;
+    float4 dq = make_float4(0.f, 0.f, 0.f, 0.f), dk = dq;
+    for (int j = 0; j < A; ++j) {
+      axpy4(dq, dss[i * pld + j], ks + j * ld + c);
+      axpy4(dk, dss[j * pld + i], qs + j * ld + c);
+    }
+    const size_t at = (tok0 + i) * D3 + h0 + c;
+    store4(dqkv + at, c, hd, dq, scale);
+    store4(dqkv + at + D, c, hd, dk);
+    if (kBf16) {
+      store4(dqkv_c + at, c, hd, dq, scale);
+      store4(dqkv_c + at + D, c, hd, dk);
+    }
+  }
+}
+
+// 64 < A <= 256: one block per (head, row), in chunks of kChunk queries and
+// keys; the same values as the resident kernel, with the softmax max and sum
+// taken over the chunks as running values.
+template <typename T>
+__global__ void __launch_bounds__(kThreadsChunk)
+attention_backward_chunked_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
+                                  const unsigned char* __restrict__ mask,
+                                  float* __restrict__ dqkv, T* __restrict__ dqkv_c,
+                                  T* __restrict__ attn, int A, int D, int H, float scale) {
+  constexpr int kBf16 = std::is_same<T, bf16>::value;
+  constexpr int NT = kThreadsChunk;
+  extern __shared__ __align__(16) float smem[];
+  const int hd = D / H, hd4 = padded_head_dim(hd), ld = row_pitch(hd), D3 = 3 * D;
+  const int n4 = hd4 / 4;
+  const int h0 = blockIdx.x * hd;
+  float* qs = smem;                  // kChunk x ld each
+  float* das = qs + kChunk * ld;
+  float* ks = das + kChunk * ld;
+  float* vs = ks + kChunk * ld;
+  float* acc1 = vs + kChunk * ld;    // attention output, then dv
+  float* acc2 = acc1 + kChunk * ld;  // dq, then dk
+  float* ps = acc2 + kChunk * ld;    // kChunk x kChunk: logits, P, P_c
+  float* dps = ps + kChunk * kChunk; // dP, then dS
+  float* m_run = dps + kChunk * kChunk;  // A each: softmax max, sum, rowsum(dP o P)
+  float* l_run = m_run + kMaxA;
+  float* d_row = l_run + kMaxA;
+  unsigned char* valid = reinterpret_cast<unsigned char*>(d_row + kMaxA);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t tok0 = static_cast<size_t>(blockIdx.y) * A;
+  const T* base = qkv + tok0 * D3 + h0;
+  const T* da_base = da + tok0 * D + h0;
+  int mine = 0;
+  for (int j = tid; j < A; j += NT) {
+    valid[j] = mask[tok0 + j] != 0;
+    mine |= valid[j];
+    m_run[j] = -INFINITY;
+    l_run[j] = 0.f;
+    d_row[j] = 0.f;
+  }
+  const int any_valid = __syncthreads_or(mine);
+  const int nb = (A + kChunk - 1) / kChunk;
+
+  auto load_q = [&](int q0, int nq) {
+    load_rows(qs, ld, base + static_cast<size_t>(q0) * D3, D3, nq, hd, NT);
+    load_rows(das, ld, da_base + static_cast<size_t>(q0) * D, D, nq, hd, NT);
+  };
+  auto load_kv = [&](int k0, int nk) {
+    load_rows(ks, ld, base + static_cast<size_t>(k0) * D3 + D, D3, nk, hd, NT);
+    load_rows(vs, ld, base + static_cast<size_t>(k0) * D3 + 2 * D, D3, nk, hd, NT);
+  };
+  // ps = q k^T and dps = da v^T for the resident chunks
+  auto logits_dp = [&](int nq, int nk) {
+    for (int idx = tid; idx < nq * nk; idx += NT) {
+      const int i = idx / nk, j = idx - i * nk;
+      ps[i * kChunk + j] = dot_rows(qs + i * ld, ks + j * ld, hd4);
+      dps[i * kChunk + j] = dot_rows(das + i * ld, vs + j * ld, hd4);
+    }
+  };
+  auto prob = [&](int q, int k, float s) {
+    return (any_valid && valid[k]) ? expf(s - m_run[q]) / l_run[q] : 0.f;
+  };
+  // ps <- P_c and dps <- dS for the resident chunks (needs the row stats)
+  auto p_and_ds = [&](int q0, int nq, int k0, int nk) {
+    for (int idx = tid; idx < nq * nk; idx += NT) {
+      const int i = idx / nk, j = idx - i * nk;
+      const float p = prob(q0 + i, k0 + j, ps[i * kChunk + j]);
+      dps[i * kChunk + j] = round_to(p * (dps[i * kChunk + j] - d_row[q0 + i]), kBf16);
+      ps[i * kChunk + j] = round_to(p, kBf16);
+    }
+  };
+  // acc1 (+)= sum over `n` of w1 rows1 and acc2 (+)= w2 rows2, four
+  // columns a thread; w(x, y) reads the weight of output row x, term y
+  auto accumulate = [&](int nout, int n, bool first, const float* w1, int s1x, int s1y,
+                        const float* rows1, const float* w2, int s2x, int s2y,
+                        const float* rows2) {
+    for (int idx = tid; idx < nout * n4; idx += NT) {
+      const int x = idx / n4, c = (idx - x * n4) * 4;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      for (int y = 0; y < n; ++y) {
+        axpy4(a, w1[x * s1x + y * s1y], rows1 + y * ld + c);
+        axpy4(b, w2[x * s2x + y * s2y], rows2 + y * ld + c);
       }
+      float4* d1 = reinterpret_cast<float4*>(acc1 + x * ld + c);
+      float4* d2 = reinterpret_cast<float4*>(acc2 + x * ld + c);
+      if (!first) {
+        const float4 p1 = *d1, p2 = *d2;
+        a = make_float4(p1.x + a.x, p1.y + a.y, p1.z + a.z, p1.w + a.w);
+        b = make_float4(p2.x + b.x, p2.y + b.y, p2.z + b.z, p2.w + b.w);
+      }
+      *d1 = a;
+      *d2 = b;
+    }
+  };
+
+  // pass 1: each query's running softmax max and sum over the key chunks,
+  // then rowsum(dP o P) with the final max and sum
+  for (int qb = 0; qb < nb; ++qb) {
+    const int q0 = qb * kChunk, nq = min(kChunk, A - q0);
+    __syncthreads();
+    load_q(q0, nq);
+    for (int kb = 0; kb < nb; ++kb) {
+      const int k0 = kb * kChunk, nk = min(kChunk, A - k0);
       __syncthreads();
-      if (tid < 3 * hd) {
-        for (int kk = 0; kk < kc; ++kk) {
-          const float w = round_to(__ldg(w_qkv + static_cast<size_t>(d0 + kk) * D3 + col), bf16);
+      load_kv(k0, nk);
+      __syncthreads();
+      logits_dp(nq, nk);
+      __syncthreads();
+      for (int i = warp; i < nq; i += NT / 32) {
+        const bool ok = lane < nk && valid[k0 + lane];
+        const float s = ok ? ps[i * kChunk + lane] : -INFINITY;
+        float mc = s;
 #pragma unroll
-          for (int a = 0; a < MAXA; ++a)
-            if (a < A) p[a] = fmaf(chunk[a * kChunk + kk], w, p[a]);
+        for (int off = 16; off > 0; off >>= 1) mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, off));
+        const float m_old = m_run[q0 + i];
+        const float m_new = fmaxf(m_old, mc);
+        if (m_new == -INFINITY) continue;  // no valid key yet (the whole warp)
+        float sum = ok ? expf(s - m_new) : 0.f;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (lane == 0) {
+          l_run[q0 + i] = l_run[q0 + i] * expf(m_old - m_new) + sum;
+          m_run[q0 + i] = m_new;
         }
       }
     }
-    if (tid < 3 * hd) {
-      const float b = __ldg(b_qkv + col);
-      float* dst = part == 0 ? qs : (part == 1 ? ks : vs);
+    for (int kb = 0; kb < nb; ++kb) {
+      const int k0 = kb * kChunk, nk = min(kChunk, A - k0);
+      __syncthreads();
+      load_kv(k0, nk);
+      __syncthreads();
+      logits_dp(nq, nk);
+      __syncthreads();
+      for (int i = warp; i < nq; i += NT / 32) {
+        float r = lane < nk ? dps[i * kChunk + lane] * prob(q0 + i, k0 + lane,
+                                                            ps[i * kChunk + lane])
+                            : 0.f;
 #pragma unroll
-      for (int a = 0; a < MAXA; ++a) {
-        if (a < A) {
-          float v = round_to(p[a] + b, bf16);
-          if (part == 0) v = round_to(v * scale_c, bf16);
-          dst[a * ld + c] = v;
+        for (int off = 16; off > 0; off >>= 1) r += __shfl_xor_sync(0xffffffffu, r, off);
+        if (lane == 0) d_row[q0 + i] += r;
+      }
+    }
+  }
+
+  // pass 2, query side: attention output o = P_c v and dq = dS k scale
+  for (int qb = 0; qb < nb; ++qb) {
+    const int q0 = qb * kChunk, nq = min(kChunk, A - q0);
+    __syncthreads();
+    load_q(q0, nq);
+    for (int kb = 0; kb < nb; ++kb) {
+      const int k0 = kb * kChunk, nk = min(kChunk, A - k0);
+      __syncthreads();
+      load_kv(k0, nk);
+      __syncthreads();
+      logits_dp(nq, nk);
+      __syncthreads();
+      p_and_ds(q0, nq, k0, nk);
+      __syncthreads();
+      accumulate(nq, nk, kb == 0, ps, kChunk, 1, vs, dps, kChunk, 1, ks);
+    }
+    for (int idx = tid; idx < nq * n4; idx += NT) {
+      const int i = idx / n4, c = (idx - i * n4) * 4;
+      const float4 o = *reinterpret_cast<const float4*>(acc1 + i * ld + c);
+      const float4 dq = *reinterpret_cast<const float4*>(acc2 + i * ld + c);
+      store4(attn + (tok0 + q0 + i) * D + h0 + c, c, hd, o);
+      const size_t at = (tok0 + q0 + i) * D3 + h0 + c;
+      store4(dqkv + at, c, hd, dq, scale);
+      if (kBf16) store4(dqkv_c + at, c, hd, dq, scale);
+    }
+  }
+
+  // pass 3, key side: dv = P_c^T da and dk = dS^T (q x scale)
+  for (int kb = 0; kb < nb; ++kb) {
+    const int k0 = kb * kChunk, nk = min(kChunk, A - k0);
+    __syncthreads();
+    load_kv(k0, nk);
+    for (int qb = 0; qb < nb; ++qb) {
+      const int q0 = qb * kChunk, nq = min(kChunk, A - q0);
+      __syncthreads();
+      load_q(q0, nq);
+      __syncthreads();
+      logits_dp(nq, nk);
+      __syncthreads();
+      p_and_ds(q0, nq, k0, nk);
+      __syncthreads();
+      accumulate(nk, nq, qb == 0, ps, 1, kChunk, das, dps, 1, kChunk, qs);
+    }
+    for (int idx = tid; idx < nk * n4; idx += NT) {
+      const int j = idx / n4, c = (idx - j * n4) * 4;
+      const float4 dv = *reinterpret_cast<const float4*>(acc1 + j * ld + c);
+      const float4 dk = *reinterpret_cast<const float4*>(acc2 + j * ld + c);
+      const size_t at = (tok0 + k0 + j) * D3 + h0 + c;
+      store4(dqkv + at + D, c, hd, dk);
+      store4(dqkv + at + 2 * D, c, hd, dv);
+      if (kBf16) {
+        store4(dqkv_c + at + D, c, hd, dk);
+        store4(dqkv_c + at + 2 * D, c, hd, dv);
+      }
+    }
+  }
+}
+
+// out[c] (c < hd) = the sum of the scaled accumulator values over the
+// block's rows below A: each warp adds its 16 rows (rows g and g + 8 of each
+// lane, then across the lanes' g), then the warps' sums are added in warp
+// order. Every thread of the block calls it.
+template <int NT>
+__device__ __forceinline__ void sum_rows(const float (&acc)[NT][4], int m0, int A, int hd,
+                                         float scale, float (*warp_sums)[kMmaMaxHeadDim],
+                                         float* out) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    if (n * 8 >= hd) break;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = (m0 + g < A ? acc[n][e] * scale : 0.f) + (m0 + g + 8 < A ? acc[n][2 + e] * scale : 0.f);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) warp_sums[warp][n * 8 + 2 * t + e] = v;
+    }
+  }
+  __syncthreads();
+  const int warps = blockDim.x >> 5;
+  for (int c = threadIdx.x; c < hd; c += blockDim.x) {
+    float s = 0.f;
+    for (int w = 0; w < warps; ++w) s += warp_sums[w][c];
+    out[c] = s;
+  }
+  __syncthreads();
+}
+
+// The tensor-core variant for bf16, A <= 64, head dim % 16 == 0 (the
+// paths' shapes): one block per (head, row), one warp per 16 queries, then
+// per 16 keys. Every product runs on mma.sync from the staged bf16 rows:
+// S = q k^T, the softmax on S's accumulators (P stays f32), o = P_c v,
+// dP = dattn v^T, dS = P o (dP - rowsum(dP o P)) rounded, dq = dS k; P_c and
+// dS go to shared memory for the key side's dv = P_c^T dattn and dk =
+// dS^T q. Instead of dqkv in f32, it writes the row's sums of the f32 dq,
+// dk, dv over its A tokens (row_sums, (rows, 3D)) for db_qkv.
+__global__ void __launch_bounds__(32 * kMmaMaxA / 16)
+attention_backward_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ da,
+                              const unsigned char* __restrict__ mask,
+                              float* __restrict__ row_sums, bf16* __restrict__ dqkv_c,
+                              bf16* __restrict__ attn, int A, int D, int H, float scale) {
+  constexpr int kKeyTiles = kMmaMaxA / 8, kColTiles = kMmaMaxHeadDim / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ unsigned char valid[kMmaMaxA];
+  __shared__ float warp_sums[kMmaMaxA / 16][kMmaMaxHeadDim];
+  const int hd = D / H, ldh = hd + 8, a16 = pad16(A), ldp = a16 + 8, D3 = 3 * D;
+  const int h0 = blockIdx.x * hd;
+  const size_t tok0 = static_cast<size_t>(blockIdx.y) * A;
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // a16 x ldh each: q, k, v, dattn
+  bf16* ks = qs + a16 * ldh;
+  bf16* vs = ks + a16 * ldh;
+  bf16* das = vs + a16 * ldh;
+  bf16* pcs = das + a16 * ldh;                   // a16 x ldp each: P_c, dS [query][key]
+  bf16* dss = pcs + a16 * ldp;
+  const int offs[3] = {h0, D + h0, 2 * D + h0};
+  stage_rows_bf16(qs, qkv + tok0 * D3, D3, offs, A, a16, hd);
+  const int offs_da[1] = {h0};
+  stage_rows_bf16(das, da + tok0 * D, D, offs_da, A, a16, hd);
+  int mine = 0;
+  for (int j = threadIdx.x; j < A; j += blockDim.x) {
+    valid[j] = mask[tok0 + j] != 0;
+    mine |= valid[j];
+  }
+  tc::cp_async_wait<0>();
+  const int any_valid = __syncthreads_or(mine);
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = (threadIdx.x >> 5) * 16;  // this warp's queries, then keys
+  const int nkt = a16 / 8, nct = hd / 8;
+  float p[kKeyTiles][4] = {};
+  float dp[kKeyTiles][4] = {};
+  for (int k0 = 0; k0 < hd; k0 += 16) {
+    unsigned a[4];
+    load_a_frag(a, qs, ldh, m0, k0, false);
+    mma_row_tile(p, a, ks, ldh, k0, nkt, false);   // S = q k^T
+    load_a_frag(a, das, ldh, m0, k0, false);
+    mma_row_tile(dp, a, vs, ldh, k0, nkt, false);  // dP = dattn v^T
+  }
+  // P (f32) for rows g and g + 8; 0 for padded queries and masked keys
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool row_ok = any_valid && m0 + g + 8 * h < A;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = j * 8 + 2 * t + e;
+        const bool ok = j < nkt && key < A && valid[key];
+        p[j][2 * h + e] = ok ? p[j][2 * h + e] : -INFINITY;
+        mx = fmaxf(mx, p[j][2 * h + e]);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float v = p[j][2 * h + e];
+        p[j][2 * h + e] = v == -INFINITY ? 0.f : expf(v - mx);
+        sum += p[j][2 * h + e];
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    float r = 0.f;  // rowsum(dP o P)
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[j][2 * h + e] = row_ok ? p[j][2 * h + e] / sum : 0.f;
+        r += dp[j][2 * h + e] * p[j][2 * h + e];
+      }
+    r += __shfl_xor_sync(0xffffffffu, r, 1);
+    r += __shfl_xor_sync(0xffffffffu, r, 2);
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)  // dS, rounded
+        dp[j][2 * h + e] =
+            __bfloat162float(__float2bfloat16(p[j][2 * h + e] * (dp[j][2 * h + e] - r)));
+  }
+  // P_c and dS to shared memory for the key side
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + g + 8 * h;
+#pragma unroll
+    for (int j = 0; j < kKeyTiles; ++j) {
+      if (j >= nkt) break;
+      *reinterpret_cast<unsigned*>(pcs + m * ldp + j * 8 + 2 * t) =
+          pack_bf16(p[j][2 * h], p[j][2 * h + 1]);
+      *reinterpret_cast<unsigned*>(dss + m * ldp + j * 8 + 2 * t) =
+          pack_bf16(dp[j][2 * h], dp[j][2 * h + 1]);
+    }
+  }
+  // o = P_c v, then dq = dS k (x scale): the accumulators as A operands
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    float o[kColTiles][4] = {};
+#pragma unroll
+    for (int kt = 0; kt < kKeyTiles / 2; ++kt) {
+      if (2 * kt >= nkt) break;
+      unsigned a[4];
+      if (pass == 0)
+        acc_to_a_frag(a, p, kt);
+      else
+        acc_to_a_frag(a, dp, kt);
+      mma_row_tile(o, a, pass == 0 ? vs : ks, ldh, kt * 16, nct, true);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + g + 8 * h;
+      if (m >= A) continue;
+#pragma unroll
+      for (int n = 0; n < kColTiles; ++n) {
+        if (n >= nct) break;
+        const int c = h0 + n * 8 + 2 * t;
+        if (pass == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(attn + (tok0 + m) * D + c) =
+              __floats2bfloat162_rn(o[n][2 * h], o[n][2 * h + 1]);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(dqkv_c + (tok0 + m) * D3 + c) =
+              __floats2bfloat162_rn(o[n][2 * h] * scale, o[n][2 * h + 1] * scale);
         }
       }
     }
-    __syncthreads();
-
-    // logits
-    for (int idx = tid; idx < A * A; idx += kThreads) {
-      const int i = idx / A;
-      const int j = idx - i * A;
-      float s = 0.f;
-      for (int cc = 0; cc < hd; ++cc) s = fmaf(qs[i * ld + cc], ks[j * ld + cc], s);
-      ps[i * MAXA + j] = s;
-    }
-    __syncthreads();
-
-    // softmax over the row's valid keys, one warp per query (P stays f32)
-    for (int i = warp; i < A; i += kThreads / 32)
-      warp_masked_softmax64(ps + i * MAXA, valid, A, any_valid, 0);
-    __syncthreads();
-
-    // attention output o = P_c v (for dW_out) and dv = P_c^T da
-    for (int idx = tid; idx < A * hd; idx += kThreads) {
-      const int i = idx / hd;
-      const int cc = idx - i * hd;
-      float o = 0.f, dv = 0.f;
-      for (int j = 0; j < A; ++j) {
-        o = fmaf(round_to(ps[i * MAXA + j], bf16), vs[j * ld + cc], o);
-        dv = fmaf(round_to(ps[j * MAXA + i], bf16), das[j * ld + cc], dv);
-      }
-      attn[(tok0 + i) * D + h0 + cc] = round_to(o, bf16);
-      dqkv[(tok0 + i) * D3 + 2 * D + h0 + cc] = dv;
-    }
-    // dP = da v^T and dS = P o (dP - rowsum(dP o P)), one warp per query
-    for (int i = warp; i < A; i += kThreads / 32) {
-      float dp[2], pr[2];
-      float r = 0.f;
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int j = lane + 32 * t;
-        pr[t] = j < A ? ps[i * MAXA + j] : 0.f;
-        dp[t] = 0.f;
-        if (j < A)
-          for (int cc = 0; cc < hd; ++cc) dp[t] = fmaf(das[i * ld + cc], vs[j * ld + cc], dp[t]);
-        r += dp[t] * pr[t];
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) r += __shfl_xor_sync(0xffffffffu, r, off);
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int j = lane + 32 * t;
-        if (j < A) dss[i * MAXA + j] = round_to(pr[t] * (dp[t] - r), bf16);
-      }
-    }
-    __syncthreads();
-
-    // dq = dS k scale, dk = dS^T (q x scale)
-    for (int idx = tid; idx < A * hd; idx += kThreads) {
-      const int i = idx / hd;
-      const int cc = idx - i * hd;
-      float dq = 0.f, dk = 0.f;
-      for (int j = 0; j < A; ++j) {
-        dq = fmaf(dss[i * MAXA + j], ks[j * ld + cc], dq);
-        dk = fmaf(dss[j * MAXA + i], qs[j * ld + cc], dk);
-      }
-      dqkv[(tok0 + i) * D3 + h0 + cc] = dq * scale;
-      dqkv[(tok0 + i) * D3 + D + h0 + cc] = dk;
-    }
+    if (pass == 1)
+      sum_rows(o, m0, A, hd, scale, warp_sums, row_sums + blockIdx.y * static_cast<size_t>(D3) + h0);
   }
-
-  // dx = dqkv_c . W_qkv^T over all heads (overwrites the parked dattn)
-  token_block_product(dqkv + tok0 * D3, D3, D3, w_qkv_t, dx + tok0 * D, A, D,
-                      chunk, bf16, false);
+  __syncthreads();
+  // key side, this warp's 16 keys: dk = dS^T q (pass 0), dv = P_c^T dattn
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+    float acc[kColTiles][4] = {};
+    for (int q0 = 0; q0 < a16; q0 += 16) {
+      unsigned a[4];
+      load_a_frag(a, pass == 0 ? dss : pcs, ldp, m0, q0, true);  // stored [query][key]
+      mma_row_tile(acc, a, pass == 0 ? qs : das, ldh, q0, nct, true);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + g + 8 * h;
+      if (m >= A) continue;
+#pragma unroll
+      for (int n = 0; n < kColTiles; ++n) {
+        if (n >= nct) break;
+        const size_t at = (tok0 + m) * D3 + (pass + 1) * D + h0 + n * 8 + 2 * t;
+        *reinterpret_cast<__nv_bfloat162*>(dqkv_c + at) =
+            __floats2bfloat162_rn(acc[n][2 * h], acc[n][2 * h + 1]);
+      }
+    }
+    sum_rows(acc, m0, A, hd, 1.f, warp_sums,
+             row_sums + blockIdx.y * static_cast<size_t>(D3) + (pass + 1) * D + h0);
+  }
 }
 
-// C (M x N) = round(X)^T round(Y) for X (T x M), Y (T x N), row-major.
-// One block per 64 x 64 tile of C; each thread owns a 4 x 4 sub-tile; the
-// loop runs over all T tokens in order, 16 at a time through shared memory.
-constexpr int BM = 64, BN = 64, BK = 16;
-
-__global__ void __launch_bounds__(kThreads)
-weight_grad_kernel(const float* __restrict__ X, const float* __restrict__ Y,
-                   float* __restrict__ C, int T, int M, int N, int bf16) {
-  __shared__ __align__(16) float Xs[BK][BM];
-  __shared__ __align__(16) float Ys[BK][BN];
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int tid = threadIdx.x;
-  const int tm = (tid / 16) * 4;
-  const int tn = (tid % 16) * 4;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int t0 = 0; t0 < T; t0 += BK) {
-    for (int i = tid; i < BK * BM; i += kThreads) {
-      const int r = i / BM;
-      const int c = i - r * BM;
-      const int t = t0 + r;
-      Xs[r][c] = (t < T && m0 + c < M)
-                     ? round_to(X[static_cast<size_t>(t) * M + m0 + c], bf16) : 0.f;
-      Ys[r][c] = (t < T && n0 + c < N)
-                     ? round_to(Y[static_cast<size_t>(t) * N + n0 + c], bf16) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&Xs[k][tm]);
-      const float4 b = *reinterpret_cast<const float4*>(&Ys[k][tn]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (m0 + tm + i < M && n0 + tn + j < N)
-        C[static_cast<size_t>(m0 + tm + i) * N + n0 + tn + j] = acc[i][j];
+size_t resident_smem_bytes(int A, int hd) {
+  return sizeof(float) * (4 * A * row_pitch(hd) + 2 * A * ((A + 3) & ~3));
+}
+size_t mma_smem_bytes(int A, int hd) {
+  const int a16 = pad16(A);
+  return sizeof(bf16) * (4 * a16 * (hd + 8) + 2 * a16 * (a16 + 8));
+}
+size_t chunked_smem_bytes(int hd) {
+  return sizeof(float) * (6 * kChunk * row_pitch(hd) + 2 * kChunk * kChunk + 3 * kMaxA) + kMaxA;
 }
 
-// out[n] = sum_t Y[t, n] (f32, unrounded). Block of 32 x 32 threads per 32
-// columns: lane x owns a column, row y sums tokens y, y + 32, ...; the 32
-// partial sums are then added in order of y.
-__global__ void __launch_bounds__(1024)
-column_sum_kernel(const float* __restrict__ Y, float* __restrict__ out, int T,
-                  int N) {
-  __shared__ float part[32][33];
-  const int n = blockIdx.x * 32 + threadIdx.x;
+template <typename T>
+cudaError_t launch_attention_backward(const T* qkv, const T* da, const unsigned char* mask,
+                                      float* dqkv, T* dqkv_c, T* attn, int rows, int A, int D,
+                                      int H, float scale, cudaStream_t stream) {
+  const int hd = D / H;
+  const dim3 grid(H, rows);
+  cudaError_t err;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (mma_attention(A, hd)) {
+      static unsigned smem_set = 0;
+      err = tc::allow_smem(reinterpret_cast<const void*>(attention_backward_mma_kernel),
+                           static_cast<int>(mma_smem_bytes(kMmaMaxA, kMmaMaxHeadDim)), smem_set);
+      if (err != cudaSuccess) return err;
+      attention_backward_mma_kernel<<<grid, 32 * (pad16(A) / 16), mma_smem_bytes(A, hd),
+                                      stream>>>(qkv, da, mask, dqkv, dqkv_c, attn, A, D, H,
+                                                scale);  // dqkv holds the row sums
+      return cudaGetLastError();
+    }
+  }
+  if (A <= 64) {
+    static unsigned smem_set = 0;
+    err = tc::allow_smem(reinterpret_cast<const void*>(attention_backward_kernel<T>),
+                         static_cast<int>(resident_smem_bytes(64, kMaxHeadDim)), smem_set);
+    if (err != cudaSuccess) return err;
+    attention_backward_kernel<T><<<grid, kThreads, resident_smem_bytes(A, hd), stream>>>(
+        qkv, da, mask, dqkv, dqkv_c, attn, A, D, H, scale);
+  } else {
+    static unsigned smem_set = 0;
+    err = tc::allow_smem(reinterpret_cast<const void*>(attention_backward_chunked_kernel<T>),
+                         static_cast<int>(chunked_smem_bytes(kMaxHeadDim)), smem_set);
+    if (err != cudaSuccess) return err;
+    attention_backward_chunked_kernel<T><<<grid, kThreadsChunk, chunked_smem_bytes(hd), stream>>>(
+        qkv, da, mask, dqkv, dqkv_c, attn, A, D, H, scale);
+  }
+  return cudaGetLastError();
+}
+
+// The bias gradients db_qkv = sum_t dqkv[t] and db_out = sum_t g[t] (f32,
+// unrounded), in two launches and a fixed order: blocks of 32 columns x
+// kSumRows threads; in the first, block (x, s) sums slice s of Y's T rows
+// (thread row y takes rows y, y + kSumRows, ... of the slice; the rows'
+// sums are then added in order of y) into partial[s][col]; in the second,
+// one block row adds the kSlices partials in order of s. Columns
+// [0, n0) are Y0's (T0 rows), [n0, n0 + n1) Y1's (T1 rows).
+constexpr int kSumRows = 8;
+constexpr int kSlices = 16;
+
+__global__ void __launch_bounds__(32 * kSumRows)
+column_sum_kernel(const float* __restrict__ Y0, int n0, int T0, const float* __restrict__ Y1,
+                  int n1, int T1, float* __restrict__ out0, float* __restrict__ out1) {
+  __shared__ float part[kSumRows][33];
+  const int blocks0 = (n0 + 31) / 32;
+  const bool first = blockIdx.x < blocks0;
+  const int n = (first ? blockIdx.x : blockIdx.x - blocks0) * 32 + threadIdx.x;
+  const int N = first ? n0 : n1, T = first ? T0 : T1;
+  const float* Y = first ? Y0 : Y1;
+  const int per = (T + gridDim.y - 1) / gridDim.y;
+  const int t0 = blockIdx.y * per, t1 = min(T, t0 + per);
   float s = 0.f;
   if (n < N)
-    for (int t = threadIdx.y; t < T; t += 32) s += Y[static_cast<size_t>(t) * N + n];
+    for (int t = t0 + threadIdx.y; t < t1; t += kSumRows) s += Y[static_cast<size_t>(t) * N + n];
   part[threadIdx.y][threadIdx.x] = s;
   __syncthreads();
   if (threadIdx.y == 0 && n < N) {
     float total = 0.f;
-    for (int y = 0; y < 32; ++y) total += part[y][threadIdx.x];
-    out[n] = total;
+    for (int y = 0; y < kSumRows; ++y) total += part[y][threadIdx.x];
+    (first ? out0 : out1)[static_cast<size_t>(blockIdx.y) * N + n] = total;
   }
 }
 
-template <int MAXA>
-cudaError_t launch_rows(const float* x, const unsigned char* mask, const float* g,
-                        const float* w_qkv, const float* w_qkv_t, const float* b_qkv,
-                        const float* w_out_t, float* dx, float* dqkv, float* attn,
-                        int rows, int A, int D, int H, int bf16, cudaStream_t stream) {
-  const int ld = D / H + 1;
-  const size_t smem = sizeof(float) * (MAXA * kChunk + 4 * MAXA * ld +
-                                       2 * MAXA * MAXA);
-  cudaError_t err = cudaFuncSetAttribute(row_backward_kernel<MAXA>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+// sums_qkv: (t_qkv, 3D), the f32 dqkv per token or the row sums of the
+// tensor-core attention backward; g: (tokens, D).
+cudaError_t launch_bias_sums(const float* sums_qkv, int t_qkv, const float* g, int tokens,
+                             float* partial, float* db_qkv, float* db_out, int D,
+                             cudaStream_t stream) {
+  const int blocks = (3 * D + 31) / 32 + (D + 31) / 32;
+  float* part_qkv = partial;                    // kSlices x 3D
+  float* part_out = partial + kSlices * 3 * D;  // kSlices x D
+  column_sum_kernel<<<dim3(blocks, kSlices), dim3(32, kSumRows), 0, stream>>>(
+      sums_qkv, 3 * D, t_qkv, g, D, tokens, part_qkv, part_out);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  row_backward_kernel<MAXA><<<rows, kThreads, smem, stream>>>(
-      x, mask, g, w_qkv, w_qkv_t, b_qkv, w_out_t, dx, dqkv, attn, A, D, H, bf16);
+  column_sum_kernel<<<dim3(blocks, 1), dim3(32, kSumRows), 0, stream>>>(
+      part_qkv, 3 * D, kSlices, part_out, D, kSlices, db_qkv, db_out);
   return cudaGetLastError();
 }
 
-cudaError_t launch_weight_grad(const float* X, const float* Y, float* C, int T,
-                               int M, int N, int bf16, cudaStream_t stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  weight_grad_kernel<<<grid, kThreads, 0, stream>>>(X, Y, C, T, M, N, bf16);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_column_sum(const float* Y, float* out, int T, int N,
-                              cudaStream_t stream) {
-  column_sum_kernel<<<(N + 31) / 32, dim3(32, 32), 0, stream>>>(Y, out, T, N);
-  return cudaGetLastError();
+// Stages 2-7 in the compute type T: x, g, w_qkv, w_out are the product
+// operands (bf16 copies or the f32 inputs).
+template <typename T>
+cudaError_t backward(const T* x, const unsigned char* mask, const T* g, const T* w_qkv,
+                     const float* b_qkv, const T* w_out, int w_out_t, float* dx, float* dw_qkv,
+                     float* dw_out, T* qkv, T* da, float* dqkv, T* dqkv_c, T* attn, int rows,
+                     int A, int D, int H, float scale, float scale_c, cudaStream_t s) {
+  constexpr int kBf16 = std::is_same<T, bf16>::value;
+  const int tokens = rows * A;
+  const tc::Epilogue none{nullptr, 0, 1.f, 0};
+  cudaError_t err = tc::gemm<T, T, false, false>(
+      x, w_qkv, qkv, tokens, 3 * D, D, tc::Epilogue{b_qkv, D, scale_c, kBf16}, s);
+  if (err != cudaSuccess) return err;
+  // dattn = g . W_out^T: (out, in) storage is W_out^T row-major
+  err = w_out_t ? tc::gemm<T, T, false, false>(g, w_out, da, tokens, D, D, none, s)
+                : tc::gemm<T, T, false, true>(g, w_out, da, tokens, D, D, none, s);
+  if (err != cudaSuccess) return err;
+  err = launch_attention_backward<T>(qkv, da, mask, dqkv, dqkv_c, attn, rows, A, D, H, scale, s);
+  if (err != cudaSuccess) return err;
+  err = tc::gemm<T, float, false, true>(dqkv_c, w_qkv, dx, tokens, D, 3 * D, none, s);
+  if (err != cudaSuccess) return err;
+  // dW_qkv = x^T . dqkv and dW_out (in, out) = attn^T . g in one launch
+  return tc::gemm_pair_long_k<T, true, false>(
+      tc::Problem<T, float>{x, dqkv_c, dw_qkv, D, 3 * D, tokens, none},
+      tc::Problem<T, float>{attn, g, dw_out, D, D, tokens, none}, s);
 }
 
 }  // namespace
 
 // x, g (rows, A, D) f32; mask (rows, A) bytes, nonzero = valid key;
-// w_qkv (D, 3D), w_qkv_t (3D, D) = w_qkv^T, b_qkv (3D), w_out_t (D, D) =
-// w_out^T, all f32. Outputs dx (rows, A, D), dw_qkv (D, 3D), db_qkv (3D),
-// dw_out (D, D), db_out (D); scratch dqkv (rows*A, 3D) and attn (rows*A, D).
-// bf16 != 0 selects bf16 rounding. Takes 1 <= A <= 64, D / num_heads <= 64
-// and D <= 512. Returns the first cudaError_t of its five launches (0 on
-// success); nothing is launched for bad sizes.
+// w_qkv (D, 3D) f32; b_qkv (3D) f32; w_out f32, (D_in, D_out) row-major or,
+// when w_out_t != 0, its transpose (D_out, D_in) row-major. Outputs dx
+// (rows, A, D), dw_qkv (D, 3D), db_qkv (3D), dw_out (D_in, D_out) and
+// db_out (D), all f32. scale = float32(1 / sqrt(D / num_heads)); scale_c is
+// scale rounded to the compute type. Scratch from the caller, each 16-byte
+// aligned, in the compute type (bf16 or f32): qkv (rows*A*3D), da
+// (rows*A*D), dqkv_c (rows*A*3D; unused in f32 mode, where dqkv serves),
+// attn (rows*A*D); in bf16 mode also x_c, g_c (rows*A*D), w_qkv_c (D*3D),
+// w_out_c (D*D); always dqkv (rows*A*3D: per token, or per row in the
+// tensor-core case) and partial (16*4D) f32. Takes 1 <= A <= 256,
+// D / num_heads <= 128 and D % 8 == 0. Returns the first cudaError_t of its
+// launches (0 on success); nothing is launched for bad sizes.
 extern "C" int fused_graph_attention_backward(
-    const void* x, const void* mask, const void* g, const void* w_qkv,
-    const void* w_qkv_t, const void* b_qkv, const void* w_out_t, void* dx,
-    void* dqkv, void* attn, void* dw_qkv, void* db_qkv, void* dw_out,
-    void* db_out, int rows, int A, int D, int num_heads, int bf16, void* stream) {
-  if (rows < 0 || A < 1 || A > 64 || num_heads < 1 || D % num_heads != 0 ||
-      D / num_heads > kMaxHeadDim || D > kMaxCols * kThreads)
+    const void* x, const void* mask, const void* g, const void* w_qkv, const void* b_qkv,
+    const void* w_out, void* dx, void* dw_qkv, void* db_qkv, void* dw_out, void* db_out,
+    void* x_c, void* g_c, void* w_qkv_c, void* w_out_c, void* qkv, void* da, void* dqkv,
+    void* dqkv_c, void* attn, void* partial, int rows, int A, int D, int num_heads, int use_bf16,
+    int w_out_t, float scale, float scale_c, void* stream) {
+  if (rows < 0 || A < 1 || A > kMaxA || num_heads < 1 || D < 8 || D % num_heads != 0 ||
+      D / num_heads > kMaxHeadDim || D % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto* xf = static_cast<const float*>(x);
   const auto* m = static_cast<const unsigned char*>(mask);
-  const auto* gf = static_cast<const float*>(g);
-  const auto* wq = static_cast<const float*>(w_qkv);
-  const auto* wqt = static_cast<const float*>(w_qkv_t);
   const auto* bq = static_cast<const float*>(b_qkv);
-  const auto* wot = static_cast<const float*>(w_out_t);
   auto* dxf = static_cast<float*>(dx);
+  auto* dwq = static_cast<float*>(dw_qkv);
+  auto* dwo = static_cast<float*>(dw_out);
   auto* dq = static_cast<float*>(dqkv);
-  auto* at = static_cast<float*>(attn);
   auto s = static_cast<cudaStream_t>(stream);
+  const int tokens = rows * A;
   cudaError_t err = cudaSuccess;
-  if (rows > 0) {
-    if (A <= 32)
-      err = launch_rows<32>(xf, m, gf, wq, wqt, bq, wot, dxf, dq, at, rows, A, D, num_heads, bf16, s);
-    else
-      err = launch_rows<64>(xf, m, gf, wq, wqt, bq, wot, dxf, dq, at, rows, A, D, num_heads, bf16, s);
+  if (rows > 0 && use_bf16) {
+    const long td = static_cast<long>(tokens) * D;
+    tc::ConvertJob job{{static_cast<const float*>(x), static_cast<const float*>(g),
+                        static_cast<const float*>(w_qkv), static_cast<const float*>(w_out)},
+                       {static_cast<bf16*>(x_c), static_cast<bf16*>(g_c),
+                        static_cast<bf16*>(w_qkv_c), static_cast<bf16*>(w_out_c)},
+                       {td, td, 3L * D * D, static_cast<long>(D) * D}};
+    err = tc::convert(job, s);
     if (err != cudaSuccess) return static_cast<int>(err);
+    err = backward<bf16>(static_cast<const bf16*>(x_c), m, static_cast<const bf16*>(g_c),
+                         static_cast<const bf16*>(w_qkv_c), bq,
+                         static_cast<const bf16*>(w_out_c), w_out_t, dxf, dwq, dwo,
+                         static_cast<bf16*>(qkv), static_cast<bf16*>(da), dq,
+                         static_cast<bf16*>(dqkv_c), static_cast<bf16*>(attn), rows, A, D,
+                         num_heads, scale, scale_c, s);
+  } else if (rows > 0) {
+    err = backward<float>(static_cast<const float*>(x), m, static_cast<const float*>(g),
+                          static_cast<const float*>(w_qkv), bq,
+                          static_cast<const float*>(w_out), w_out_t, dxf, dwq, dwo,
+                          static_cast<float*>(qkv), static_cast<float*>(da), dq, dq,
+                          static_cast<float*>(attn), rows, A, D, num_heads, scale, scale_c, s);
+  } else {  // no token: the weight gradients are 0
+    err = cudaMemsetAsync(dwq, 0, sizeof(float) * 3L * D * D, s);
+    if (err == cudaSuccess) err = cudaMemsetAsync(dwo, 0, sizeof(float) * D * D, s);
   }
-  const int T = rows * A;
-  err = launch_weight_grad(xf, dq, static_cast<float*>(dw_qkv), T, D, 3 * D, bf16, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_weight_grad(at, gf, static_cast<float*>(dw_out), T, D, D, bf16, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_column_sum(dq, static_cast<float*>(db_qkv), T, 3 * D, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_column_sum(gf, static_cast<float*>(db_out), T, D, s);
+  // the tensor-core attention backward leaves per-row sums in dqkv
+  const bool row_sums = use_bf16 && mma_attention(A, D / num_heads);
+  err = launch_bias_sums(dq, row_sums ? rows : tokens, static_cast<const float*>(g), tokens,
+                         static_cast<float*>(partial), static_cast<float*>(db_qkv),
+                         static_cast<float*>(db_out), D, s);
   return static_cast<int>(err);
 }

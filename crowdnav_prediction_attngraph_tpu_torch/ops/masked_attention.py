@@ -7,14 +7,18 @@ Port of ``crowdnav_prediction_attngraph_tpu/ops/masked_attention.py``:
     ``_fused_diffable`` (:261-295) becomes :class:`FusedGraphAttention`, a
     ``torch.autograd.Function``; :func:`fused_graph_attention` is its
     ``apply``;
-  * the forward TPU kernel ``_fused_kernel`` (:175-230) becomes a
-    hand-written CUDA kernel for Hopper (``csrc/fused_graph_attention.cu``),
-    and ``reference_fused_graph_attention`` (:596-603) the plain PyTorch
+  * the forward TPU kernel ``_fused_kernel`` (:175-230) becomes
+    hand-written CUDA kernels for Hopper (``csrc/fused_graph_attention.cu``:
+    two launches of the tiled tensor-core product of ``csrc/tc_gemm.cuh``
+    around a per-(row, head) attention kernel), and
+    ``reference_fused_graph_attention`` (:596-603) the plain PyTorch
     version :func:`reference_fused_graph_attention`, with the same math and
     the same bf16 rounding points;
   * the backward TPU kernel ``_bwd_kernel`` (:298-411, via
     ``_fused_backward`` :414-492) becomes ``csrc/fused_graph_attention_bwd.cu``
-    behind :func:`fused_graph_attention_backward`, with the plain version
+    (the same product for its five projections, a per-(row, head)
+    attention backward, fixed-order column sums) behind
+    :func:`fused_graph_attention_backward`, with the plain version
     :func:`reference_fused_graph_attention_backward`;
   * the TPU kernel ``_attn_kernel`` (:50-88, via ``packed_masked_attention``
     :91-143) becomes ``csrc/packed_masked_attention.cu`` behind
@@ -38,7 +42,9 @@ send one (the policy's mask keeps detected >= 1).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import math
 
 import torch
@@ -147,12 +153,13 @@ def _check(x, mask, num_heads, compute_dtype, **tensors):
     shapes = {"mask": (rows, A), "w_qkv": (D, 3 * D), "b_qkv": (3 * D,),
               "w_out": (D, D), "b_out": (D,), "g": (rows, A, D),
               "k": (rows, A, D), "v": (rows, A, D)}
+    device = x.device
     for name, t in (("mask", mask), *tensors.items()):
-        if tuple(t.shape) != shapes[name]:
+        if t.shape != shapes[name]:
             raise ValueError(f"{name} must be {shapes[name]}, "
                              f"got {tuple(t.shape)}")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, x on {device}")
     for name, t in (("x", x), *tensors.items()):
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
@@ -165,21 +172,74 @@ def _check(x, mask, num_heads, compute_dtype, **tensors):
                         f"got {compute_dtype}")
 
 
-def _check_kernel(x, num_heads, tensors, max_d=512):
-    """What the CUDA kernels take: 1 <= A <= 64, head dim <= 64, D <=
-    ``max_d``, the ``tensors`` given contiguous (K1's w_out is laid out by
-    the wrappers)."""
+# What the CUDA kernels take. K1 and K2 (tiled products plus per-(row, head)
+# attention): 1 <= A <= 256, head dim <= 128 and D % 8 == 0, for the 16-byte
+# copies of the products' tiles. K3: 1 <= A <= 64 and head dim <= 64.
+K12_LIMITS = {"max_a": 256, "max_hd": 128, "d_multiple": 8}
+K3_LIMITS = {"max_a": 64, "max_hd": 64, "d_multiple": 1}
+
+
+def _check_kernel(x, num_heads, tensors, max_a, max_hd, d_multiple):
+    """What a CUDA kernel takes: 1 <= A <= ``max_a``, head dim <=
+    ``max_hd``, D a multiple of ``d_multiple``, the ``tensors`` given
+    contiguous (K1's and K2's w_out is laid out by the wrappers)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     rows, A, D = x.shape
-    if (not 1 <= A <= 64 or D // num_heads > 64
-            or (max_d is not None and D > max_d)):
-        limit = "" if max_d is None else f", D <= {max_d}"
-        raise ValueError(f"the kernel takes 1 <= A <= 64, head dim <= 64"
-                         f"{limit}; got A={A}, D={D}, heads={num_heads}")
+    if not 1 <= A <= max_a or D // num_heads > max_hd or D % d_multiple:
+        multiple = f", D % {d_multiple} == 0" if d_multiple > 1 else ""
+        raise ValueError(f"the kernel takes 1 <= A <= {max_a}, head dim <= "
+                         f"{max_hd}{multiple}; got A={A}, D={D}, "
+                         f"heads={num_heads}")
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _w_out_layout(w_out):
+    """(tensor, transposed): w_out as the kernels read it, (in, out)
+    row-major, or its (out, in) row-major storage when it is a transposed
+    view such as an nn.Linear weight's ``.t()`` (no copy either way)."""
+    if w_out.is_contiguous():
+        return w_out, 0
+    if w_out.t().is_contiguous():
+        return w_out, 1
+    return w_out.contiguous(), 0
+
+
+def _aligned(t):
+    """``t``, or a copy of it if its data does not start on 16 bytes (the
+    products' tile copies move 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _scales(D, num_heads, compute_dtype):
+    """float32(1 / sqrt(hd)), as the plain versions multiply by it, and the
+    same rounded to the compute dtype (K2's q x scale_c)."""
+    scale = 1.0 / math.sqrt(D // num_heads)
+    return (torch.tensor(scale, dtype=torch.float32).item(),
+            torch.tensor(scale, dtype=compute_dtype).item())
+
+
+def _scratch(device, *pieces):
+    """One allocation carved into 16-byte aligned pieces, each (numel, dtype)
+    or None: (the buffer, which must outlive the launches, and each piece's
+    address, None for None). Freed after the call, the buffer goes back to
+    PyTorch's caching allocator in stream order, so the launches already
+    queued on the stream finish with it first."""
+    offsets, total = [], 0
+    for piece in pieces:
+        if piece is None:
+            offsets.append(None)
+            continue
+        numel, dtype = piece
+        offsets.append(total)
+        total += -(-numel * dtype.itemsize // 16) * 16
+    buf = torch.empty(max(total, 16), dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+    return buf, [None if o is None else base + o for o in offsets]
+
 
 
 class FusedGraphAttention(torch.autograd.Function):
@@ -214,10 +274,10 @@ def fused_graph_attention(x, mask, w_qkv, b_qkv, w_out, b_out,
     """K1 forward: (rows, A, D) -> (rows, A, D) float32, differentiable in
     x and the weights through :class:`FusedGraphAttention`.
 
-    CUDA tensors launch the Hopper kernels (A <= 64, D / num_heads <= 64,
-    D <= 512; all contiguous but w_out, which may be any (D, D) view, such
-    as an nn.Linear weight's ``.t()``); CPU tensors run the plain
-    versions."""
+    CUDA tensors launch the Hopper kernels (``K12_LIMITS``: A <= 256,
+    D / num_heads <= 128, D % 8 == 0; all contiguous but w_out, which may be
+    any (D, D) view, such as an nn.Linear weight's ``.t()``); CPU tensors
+    run the plain versions."""
     _check(x, mask, num_heads, compute_dtype, w_qkv=w_qkv, b_qkv=b_qkv,
            w_out=w_out, b_out=b_out)
     return FusedGraphAttention.apply(x, mask, w_qkv, b_qkv, w_out, b_out,
@@ -230,17 +290,27 @@ fused_graph_attention.launches = 0
 def _launch_forward(x, mask, w_qkv, b_qkv, w_out, b_out, num_heads,
                     compute_dtype):
     _check_kernel(x, num_heads, {"x": x, "mask": mask, "w_qkv": w_qkv,
-                                 "b_qkv": b_qkv, "b_out": b_out})
+                                 "b_qkv": b_qkv, "b_out": b_out}, **K12_LIMITS)
     rows, A, D = x.shape
+    tokens = rows * A
+    bf16 = compute_dtype == torch.bfloat16
+    w_out, w_out_t = _w_out_layout(w_out)
+    x, w_qkv, w_out = _aligned(x), _aligned(w_qkv), _aligned(w_out)
     out = torch.empty_like(x)
-    w_out = w_out.contiguous()          # the kernel reads (in, out) rows
-    fn = _kernel_fn(KERNEL, "fused_graph_attention_forward", 7, 5)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), mask.data_ptr(), w_qkv.data_ptr(),
-                b_qkv.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-                out.data_ptr(), rows, A, D, num_heads,
-                int(compute_dtype == torch.bfloat16), stream)
+    cd = compute_dtype
+    # bf16 copies of the f32 product operands (none in f32 mode), then the
+    # rounded q|k|v and attention output between the three stages
+    copies = ((tokens * D, cd), (3 * D * D, cd), (D * D, cd)) if bf16 \
+        else (None,) * 3
+    buf, ptrs = _scratch(x.device, *copies, (tokens * 3 * D, cd),
+                         (tokens * D, cd))
+    scale, _ = _scales(D, num_heads, compute_dtype)
+    fn = _kernel_fn(KERNEL, "fused_graph_attention_forward",
+                    [_P] * 12 + [_I] * 6 + [_F])
+    with _on_device(x.device):
+        rc = fn(*_ptrs(x, mask, w_qkv, b_qkv, w_out, b_out, out), *ptrs,
+                rows, A, D, num_heads, int(bf16), w_out_t, scale,
+                torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_graph_attention kernel launch failed: "
                            f"cudaError {rc}")
@@ -252,7 +322,7 @@ def fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
                                    num_heads: int,
                                    compute_dtype: torch.dtype = torch.bfloat16):
     """K2: (dx, dw_qkv, db_qkv, dw_out, db_out) of K1 for the output
-    cotangent ``g``. CUDA tensors launch the Hopper kernel (K1's limits);
+    cotangent ``g``. CUDA tensors launch the Hopper kernels (K1's limits);
     CPU tensors run :func:`reference_fused_graph_attention_backward`."""
     _check(x, mask, num_heads, compute_dtype, w_qkv=w_qkv, b_qkv=b_qkv,
            w_out=w_out, g=g)
@@ -260,30 +330,37 @@ def fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
         return reference_fused_graph_attention_backward(
             x, mask, w_qkv, b_qkv, w_out, g, num_heads, compute_dtype)
     _check_kernel(x, num_heads, {"x": x, "mask": mask, "w_qkv": w_qkv,
-                                 "b_qkv": b_qkv, "g": g})
+                                 "b_qkv": b_qkv, "g": g}, **K12_LIMITS)
     rows, A, D = x.shape
+    tokens = rows * A
+    bf16 = compute_dtype == torch.bfloat16
+    w_out, w_out_t = _w_out_layout(w_out)
+    x, g, w_qkv, w_out = (_aligned(t) for t in (x, g, w_qkv, w_out))
 
     def f32(*shape):
         return torch.empty(shape, device=x.device, dtype=torch.float32)
-
     dx = torch.empty_like(x)
-    dw_qkv, db_qkv, dw_out, db_out = f32(D, 3 * D), f32(3 * D), f32(D, D), f32(D)
-    # scratch: the f32 dq|dk|dv and the rounded attention output per token,
-    # read back by the weight-gradient pass
-    dqkv, attn = f32(rows * A, 3 * D), f32(rows * A, D)
-    # the (out, in) layouts, so the kernel's dx and dattn products read the
-    # weights along contiguous rows; w_out^T is no copy when w_out is the
-    # transposed view of an nn.Linear weight, as the policy passes it
-    w_qkv_t, w_out_t = w_qkv.t().contiguous(), w_out.t().contiguous()
-    fn = _kernel_fn(KERNEL_BWD, "fused_graph_attention_backward", 14, 5)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(x.data_ptr(), mask.data_ptr(), g.data_ptr(), w_qkv.data_ptr(),
-                w_qkv_t.data_ptr(), b_qkv.data_ptr(), w_out_t.data_ptr(),
-                dx.data_ptr(), dqkv.data_ptr(), attn.data_ptr(),
-                dw_qkv.data_ptr(), db_qkv.data_ptr(), dw_out.data_ptr(),
-                db_out.data_ptr(), rows, A, D, num_heads,
-                int(compute_dtype == torch.bfloat16), stream)
+    dw_qkv, db_qkv, dw_out, db_out = f32(D, 3 * D), f32(3 * D), f32(D, D), \
+        f32(D)
+    cd, fl = compute_dtype, torch.float32
+    # bf16 copies of the f32 product operands (none in f32 mode); the
+    # recomputed q|k|v, dattn, dq|dk|dv (f32 for the bias sums, and in the
+    # compute dtype for the products; one buffer in f32 mode), the rounded
+    # attention output and the bias sums' slice partials
+    copies = ((tokens * D, cd), (tokens * D, cd), (3 * D * D, cd),
+              (D * D, cd)) if bf16 else (None,) * 4
+    buf, ptrs = _scratch(
+        x.device, *copies, (tokens * 3 * D, cd), (tokens * D, cd),
+        (tokens * 3 * D, fl), (tokens * 3 * D, cd) if bf16 else None,
+        (tokens * D, cd), (_BIAS_SLICES * 4 * D, fl))
+    scale, scale_c = _scales(D, num_heads, compute_dtype)
+    fn = _kernel_fn(KERNEL_BWD, "fused_graph_attention_backward",
+                    [_P] * 21 + [_I] * 6 + [_F, _F])
+    with _on_device(x.device):
+        rc = fn(*_ptrs(x, mask, g, w_qkv, b_qkv, w_out, dx, dw_qkv, db_qkv,
+                       dw_out, db_out), *ptrs,
+                rows, A, D, num_heads, int(bf16), w_out_t, scale, scale_c,
+                torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_graph_attention_backward kernel launch "
                            f"failed: cudaError {rc}")
@@ -292,6 +369,7 @@ def fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
 
 
 fused_graph_attention_backward.launches = 0
+_BIAS_SLICES = 16       # kSlices of csrc/fused_graph_attention_bwd.cu
 
 
 def reference_masked_attention(q, k, v, mask, num_heads: int):
@@ -325,14 +403,15 @@ def packed_masked_attention(q, k, v, mask, num_heads: int):
     if q.device.type == "cpu":
         return reference_masked_attention(q, k, v, mask, num_heads)
     _check_kernel(q, num_heads, {"q": q, "k": k, "v": v, "mask": mask},
-                  max_d=None)
+                  **K3_LIMITS)
     rows, A, D = q.shape
     out = torch.empty_like(q)
-    fn = _kernel_fn(KERNEL_ATTN, "packed_masked_attention_forward", 5, 4)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = _kernel_fn(KERNEL_ATTN, "packed_masked_attention_forward",
+                    [_P] * 5 + [_I] * 4)
+    with _on_device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                out.data_ptr(), rows, A, D, num_heads, stream)
+                out.data_ptr(), rows, A, D, num_heads,
+                torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"packed_masked_attention kernel launch failed: "
                            f"cudaError {rc}")
@@ -343,13 +422,33 @@ def packed_masked_attention(q, k, v, mask, num_heads: int):
 packed_masked_attention.launches = 0
 
 
-def _kernel_fn(name: str, symbol: str, n_pointers: int, n_ints: int):
-    """The C entry ``symbol`` of ``csrc/<name>.cu``: ``n_pointers`` pointers,
-    then ``n_ints`` ints ((rows, A, D, num_heads) and, for K1 and K2, bf16)
-    and the stream."""
-    fn = getattr(_build.load(name), symbol)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints \
-            + [ctypes.c_void_p]
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _ptrs(*tensors):
+    """Data pointers for a C entry; None (an unused scratch) passes NULL."""
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def _on_device(device):
+    """The kernels launch on the current device: a context that makes
+    ``device`` current, or nothing when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+_fns = {}
+
+
+def _kernel_fn(name: str, symbol: str, argtypes):
+    """The C entry ``symbol`` of ``csrc/<name>.cu`` with the given argument
+    types, the stream appended (pointers as c_void_p, so ctypes does not cut
+    them to 32 bits)."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(_build.load(name), symbol)
+        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        _fns[symbol] = fn
     return fn

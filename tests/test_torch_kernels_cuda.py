@@ -17,8 +17,12 @@ largest entry of each gradient (tests/test_torch_masked_attention.py says
 why); an all-masked row's dx is exactly 0. Two runs give the same bits:
 the weight gradients are reduced in a fixed order, without atomics.
 
-K1 and K2 are held at A = 50 and 64 as well (their A <= 64 tier); both
-refuse A = 65.
+K1 and K2 are held at A = 50, 64, 80 (past the single-chunk attention)
+and 256 (their limit), at D = 1024 / 8 heads (head dim 128, D > 512), and
+at head dims 65 and 48 (bf16 attention on CUDA cores and on the tensor
+cores off the paths' head dim);
+both refuse A = 257 and head dim 136. K1, like K2, gives the same bits on
+two runs: every sum runs in a fixed order, without atomics.
 
 K3 tolerance: atol 2e-5 (the JAX kernel's own bound against its reference,
 tests/test_pallas_attention.py:15-26); an all-masked row is exactly 0 and
@@ -47,40 +51,50 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def k1_inputs(rows, a, seed, device):
+def k1_inputs(rows, a, seed, device, d=D):
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn(rows, a, D, generator=g)
-    w_qkv = torch.randn(D, 3 * D, generator=g) / math.sqrt(D)
-    b_qkv = torch.randn(3 * D, generator=g) * 0.01
-    w_out = torch.randn(D, D, generator=g) / math.sqrt(D)
-    b_out = torch.randn(D, generator=g) * 0.01
+    x = torch.randn(rows, a, d, generator=g)
+    w_qkv = torch.randn(d, 3 * d, generator=g) / math.sqrt(d)
+    b_qkv = torch.randn(3 * d, generator=g) * 0.01
+    w_out = torch.randn(d, d, generator=g) / math.sqrt(d)
+    b_out = torch.randn(d, generator=g) * 0.01
     det = torch.randint(1, a + 1, (rows,), generator=g)
     mask = torch.arange(a)[None, :] < det[:, None]
     return [t.to(device) for t in (x, mask, w_qkv, b_qkv, w_out, b_out)]
 
 
+# (rows, A, D): the paths' shapes, the A <= 64 single-chunk attention, A
+# past it (3, 80) and at the limit (2, 256), head dim 128 at D = 1024, and
+# head dims 65 (CUDA-core attention in bf16 too, a ragged float4 row) and 48
+SHAPES = [(100, 20, D), (64, 20, D), (32, 20, D), (7, 32, D), (3, 5, D),
+          (7, 50, D), (3, 64, D), (3, 80, D), (2, 256, D), (3, 20, 1024),
+          (3, 20, 520), (5, 33, 384)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,a", [(100, 20), (64, 20), (32, 20), (7, 32),
-                                    (3, 5), (7, 50), (3, 64)])
+@pytest.mark.parametrize("rows,a,d", SHAPES)
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 3e-4),
                                         (torch.bfloat16, 3e-2)])
-def test_k1_matches_plain(cuda_device, rows, a, dtype, atol):
-    args = k1_inputs(rows, a, rows + a, cuda_device)
+def test_k1_matches_plain(cuda_device, rows, a, d, dtype, atol):
+    args = k1_inputs(rows, a, rows + a, cuda_device, d)
     before = fused_graph_attention.launches
     got = fused_graph_attention(*args, HEADS, compute_dtype=dtype)
     torch.cuda.synchronize()
     assert fused_graph_attention.launches == before + 1
     expect = reference_fused_graph_attention(*args, HEADS, compute_dtype=dtype)
     torch.testing.assert_close(got, expect, rtol=0, atol=atol)
+    again = fused_graph_attention(*args, HEADS, compute_dtype=dtype)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("a", [A, 80])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k1_all_masked_row_isolation(cuda_device, dtype):
-    args = k1_inputs(8, A, 1, cuda_device)
+def test_k1_all_masked_row_isolation(cuda_device, dtype, a):
+    args = k1_inputs(8, a, 1, cuda_device)
     args[1][3] = False
     out0 = fused_graph_attention(*args, HEADS, compute_dtype=dtype)
-    torch.testing.assert_close(out0[3], args[5].expand(A, D), rtol=0, atol=0)
+    torch.testing.assert_close(out0[3], args[5].expand(a, D), rtol=0, atol=0)
     x1 = args[0].clone()
     x1[3] = 1e4
     out1 = fused_graph_attention(x1, *args[1:], HEADS, compute_dtype=dtype)
@@ -90,7 +104,10 @@ def test_k1_all_masked_row_isolation(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_k1_rejects_what_it_does_not_take(cuda_device):
-    args = k1_inputs(2, 65, 0, cuda_device)
+    args = k1_inputs(2, 257, 0, cuda_device)
+    with pytest.raises(ValueError):
+        fused_graph_attention(*args, HEADS)
+    args = k1_inputs(2, A, 0, cuda_device, 1088)     # head dim 136
     with pytest.raises(ValueError):
         fused_graph_attention(*args, HEADS)
     args = k1_inputs(2, A, 0, cuda_device)
@@ -99,11 +116,11 @@ def test_k1_rejects_what_it_does_not_take(cuda_device):
                               .transpose(0, 1), *args[1:], HEADS)
 
 
-def k2_inputs(rows, a, seed, device):
+def k2_inputs(rows, a, seed, device, d=D):
     """K1's inputs with row 1 all-masked, and a cotangent g."""
-    x, mask, w_qkv, b_qkv, w_out, _ = k1_inputs(rows, a, seed, device)
+    x, mask, w_qkv, b_qkv, w_out, _ = k1_inputs(rows, a, seed, device, d)
     mask[min(1, rows - 1)] = False
-    g = torch.randn(rows, a, D, generator=torch.Generator().manual_seed(
+    g = torch.randn(rows, a, d, generator=torch.Generator().manual_seed(
         seed + 1)).to(device)
     return [x, mask, w_qkv, b_qkv, w_out, g]
 
@@ -119,11 +136,13 @@ def assert_k2_close(got, expect, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,a", [(100, 20), (7, 32), (3, 5), (7, 50),
-                                    (3, 64)])
+@pytest.mark.parametrize("rows,a,d", [(100, 20, D), (7, 32, D), (3, 5, D),
+                                      (7, 50, D), (3, 64, D), (3, 80, D),
+                                      (2, 256, D), (3, 20, 1024), (3, 20, 520),
+                                      (5, 33, 384)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k2_matches_plain(cuda_device, rows, a, dtype):
-    args = k2_inputs(rows, a, rows + a, cuda_device)
+def test_k2_matches_plain(cuda_device, rows, a, d, dtype):
+    args = k2_inputs(rows, a, rows + a, cuda_device, d)
     before = fused_graph_attention_backward.launches
     got = fused_graph_attention_backward(*args, HEADS, compute_dtype=dtype)
     torch.cuda.synchronize()
@@ -182,7 +201,10 @@ def test_w_out_as_a_linear_weight_view(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_k2_rejects_what_it_does_not_take(cuda_device):
-    args = k2_inputs(2, 65, 0, cuda_device)
+    args = k2_inputs(2, 257, 0, cuda_device)
+    with pytest.raises(ValueError):
+        fused_graph_attention_backward(*args, HEADS)
+    args = k2_inputs(2, A, 0, cuda_device, 1088)     # head dim 136
     with pytest.raises(ValueError):
         fused_graph_attention_backward(*args, HEADS)
     args = k2_inputs(2, A, 0, cuda_device)

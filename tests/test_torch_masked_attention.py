@@ -7,7 +7,9 @@ plain versions on the card by tests/test_torch_kernels_cuda.py.
 * plain K1 vs the JAX Pallas kernel in interpret mode, f32: atol 3e-4, the
   kernel's own bound (tests/test_pallas_attention.py:49);
 * the same at (rows, A) = (5, 50), the widest crowd of the repo's configs
-  (10-50 humans), where the card's kernels take their A <= 64 tier;
+  (10-50 humans), and, K1 and K2 in f32, at the shapes the card's kernels
+  newly take: (3, 80) past their single-chunk attention (A <= 64) and
+  (3, 20) at D = 1024 / 8 heads (head dim 128);
 * plain K1 in bf16 vs the JAX Pallas kernel in bf16 (interpret mode), same
   rounding points: atol 2e-2 (bf16 has 8 mantissa bits; sums are ordered
   differently, so a rounding may land one bf16 ulp apart);
@@ -94,6 +96,19 @@ def test_plain_matches_jax_kernel_interpret_a50():
     np.testing.assert_allclose(got.numpy(), expect, atol=3e-4)
 
 
+@pytest.mark.parametrize("rows,A,D", [(3, 80, 512), (3, 20, 1024)])
+def test_plain_matches_jax_kernel_interpret_wide(rows, A, D):
+    """The shapes the card's kernels newly take: A past 64, and head dim
+    128 at D > 512."""
+    arrs = inputs(rows, A, D, seed=A + D)
+    expect = np.asarray(j_fused_graph_attention(
+        *[jnp.asarray(a) for a in arrs], 8, compute_dtype=jnp.float32,
+        interpret=True))
+    got = fused_graph_attention(*torch_args(arrs), 8,
+                                compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), expect, atol=3e-4)
+
+
 def test_wrapper_on_cpu_is_the_plain_version():
     args = torch_args(inputs(4, 20, seed=5))
     before = fused_graph_attention.launches
@@ -152,6 +167,22 @@ def test_plain_backward_matches_jax_kernel_interpret(rows, A, r_blk, dtype,
                                        err_msg=name)
         else:
             assert np.abs(t.numpy() - e).max() <= 1e-2 * np.abs(e).max(), name
+
+
+@pytest.mark.parametrize("rows,A,D", [(3, 80, 512), (3, 20, 1024)])
+def test_plain_backward_matches_jax_kernel_interpret_wide(rows, A, D):
+    """K2's plain version at the shapes the card's kernels newly take, f32,
+    at the file's backward bound."""
+    x, mask, w_qkv, b_qkv, w_out, b_out = inputs(rows, A, D, seed=A + D)
+    g = cotangent(rows, A, D, seed=A + D)
+    expect = j_fused_backward(
+        *[jnp.asarray(a) for a in (x, mask, w_qkv, b_qkv, w_out, b_out, g)],
+        8, None, "f32", None, True)
+    got = reference_fused_graph_attention_backward(
+        *torch_args((x, mask, w_qkv, b_qkv, w_out, g)), 8, torch.float32)
+    for name, t, e in zip(GRADS, got, expect):
+        np.testing.assert_allclose(t.numpy(), np.asarray(e), atol=5e-3,
+                                   rtol=1e-3, err_msg=name)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
