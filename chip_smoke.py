@@ -23,12 +23,18 @@ Phases, each printing one JSON line with its seconds before the next starts:
    in f32 (atol 5e-3 / rtol 1e-3) and bf16 (max abs error <= 1e-2 x the
    largest entry of each gradient), with an all-masked row whose dx must be
    0 and a second run that must give the same bits; holds K3 (packed masked
-   attention over precomputed q, k, v, f32) against its plain version at
-   the edges/s bench's shape (rows = 4096, A = 20) and at (960, 50) and
-   (7, 64) to atol 2e-5, with an all-masked row that must be exactly 0 and
-   leave the other rows' bits alone, and masked keys whose v at 1e6 must
-   change no bit; times each beside its plain version, its bound and a
-   PyTorch library call or composition (the median over 5 groups of
+   attention over precomputed q, k, v) against its plain version at the
+   edges/s bench's shape (rows = 4096, A = 20, 8 heads, f32), at (960, 50),
+   (7, 64), (960, 80) and (16, 256), at head dim 256 (2 heads) and with bf16
+   q, k, v at 4096 x 20, to atol 2e-5, with a second run that must give the
+   same bits, an all-masked row that must be exactly 0 and leave the other
+   rows' bits alone, and masked keys whose v at 1e6 must change no bit; at
+   the bench's shape it also times a stream over the same bytes
+   (``torch.addcmul`` of q, k and v into one output: the reads and write
+   of a pass that loads every key) as a practical floor; K3's bound counts
+   the k and v of the valid keys only, and the bound as if every key were
+   valid stands beside it; times each beside its plain version, its bound
+   and a PyTorch library call or composition (the median over 5 groups of
    back-to-back calls, each group between one pair of CUDA events), and
    reads the device kernels behind one call of each from a torch.profiler
    trace;
@@ -112,8 +118,13 @@ K1_ROWS = (N_CASES, 64, 960)
 A, D, HEADS = 20, 512, 8
 A_WIDE = 50            # the widest crowd of the repo's configs (10-50 humans)
 A_PAST = 80            # past K1's and K2's single-chunk attention (A <= 64)
-# K3 at the edges/s bench's shape, then at the wide crowd and the limit
-K3_SHAPES = ((4096, 20), (960, A_WIDE), (7, 64))
+# K3 (rows, A, heads, dtype): the edges/s bench's shape first (the kernels
+# line reports it), the wide crowd, one and several key tiles past the
+# bench's, A = 256, head dim 256 and bf16 inputs at the bench's rows
+K3_CASES = ((4096, 20, HEADS, torch.float32), (960, A_WIDE, HEADS, torch.float32),
+            (7, 64, HEADS, torch.float32), (960, A_PAST, HEADS, torch.float32),
+            (16, 256, HEADS, torch.float32), (4096, 20, 2, torch.float32),
+            (4096, 20, HEADS, torch.bfloat16))
 K3_ATOL = 2e-5
 # NVIDIA H100 SXM data-sheet peaks (dense) and memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -163,11 +174,11 @@ def k1_inputs(rows: int, seed: int, device, a: int = A):
     return [t.to(device) for t in (x, mask, w_qkv, b_qkv, w_out, b_out)]
 
 
-def k3_inputs(rows: int, a: int, seed: int, device):
-    """q, k, v and a key mask with at least one valid key per row, made on
-    the card from a seed."""
+def k3_inputs(rows: int, a: int, seed: int, device, dtype=torch.float32):
+    """q, k, v (in ``dtype``) and a key mask with at least one valid key per
+    row, made on the card from a seed."""
     g = torch.Generator(device).manual_seed(seed)
-    q, k, v = (torch.randn(rows, a, D, generator=g, device=device)
+    q, k, v = (torch.randn(rows, a, D, generator=g, device=device).to(dtype)
                for _ in range(3))
     det = torch.randint(1, a + 1, (rows,), generator=g, device=device)
     mask = torch.arange(a, device=device)[None, :] < det[:, None]
@@ -196,16 +207,21 @@ def time_ms(fn, reps: int = 30, groups: int = 5) -> float:
 def device_kernels(fn) -> list:
     """The names of the device kernels one call of ``fn`` launches, read
     from a torch.profiler trace of that call (after a warm-up call); None
-    if the trace holds no device activity."""
+    if the trace holds no device activity. A marker kernel (``spin_kernel``)
+    opens the trace and is left out of the names: the trace can miss its
+    first kernel, and then it misses the marker."""
     fn()
     torch.cuda.synchronize()
     try:
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         names = [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "spin_kernel" not in e.name]
     except Exception as exc:  # the trace is a report, not a check
         print(f"chip_smoke: profiler unavailable: {exc}", file=sys.stderr)
         return None
@@ -276,12 +292,25 @@ def k2_bound_ms(rows: int, dtype, a: int = A) -> tuple:
     return bound_ms(flops, nbytes, dtype)
 
 
-def k3_bound_ms(rows: int, a: int) -> tuple:
-    """K3's work: q, k, v and the mask read once, the output written once;
-    QK^T and PV for every head (4 rows A^2 D FLOP) in f32."""
-    flops = 4 * rows * a * a * D
-    nbytes = 4 * 4 * rows * a * D + rows * a
+def k3_bound_ms(q, mask) -> tuple:
+    """K3's work on these inputs: q and the mask read once, k and v of the
+    valid keys only (a masked key's k and v reach no result), the f32
+    output written once; the logits and P v of every (query, valid key)
+    pair of every head (4 D A FLOP a valid key) in f32."""
+    rows, a, d = q.shape
+    valid = int(mask.sum().item())
+    es = q.element_size()
+    flops = 4 * d * a * valid
+    nbytes = (es + 4) * rows * a * d + 2 * es * valid * d + rows * a
     return bound_ms(flops, nbytes, torch.float32)
+
+
+def k3_bound_all_keys_ms(rows: int, a: int, in_bytes: int) -> float:
+    """The bound as if every key were valid (the earlier yardstick): all
+    of q, k and v read, all (query, key) pairs computed."""
+    flops = 4 * rows * a * a * D
+    nbytes = (3 * in_bytes + 4) * rows * a * D + rows * a
+    return bound_ms(flops, nbytes, torch.float32)[0]
 
 
 def k1_library(x, mask, w_qkv, b_qkv, w_out, b_out, dtype):
@@ -312,13 +341,14 @@ def k2_library(x, mask, w_qkv, b_qkv, w_out, b_out, g, dtype):
     return lambda: torch.autograd.grad(out, leaves, gc, retain_graph=True)
 
 
-def k3_library(q, k, v, mask):
+def k3_library(q, k, v, mask, heads: int = HEADS):
     """One PyTorch call of the same function (yardstick only):
     scaled_dot_product_attention with a boolean key mask on (rows, heads, A,
-    hd) views of the same inputs, its output left in that layout. Rows with
-    no valid key differ (NaN there); the bench's rows all have one."""
+    hd) views of the same inputs, in their dtype, its output left in that
+    layout. Rows with no valid key differ (NaN there); the inputs here all
+    have one."""
     rows, a = q.shape[:2]
-    qh, kh, vh = (t.view(rows, a, HEADS, D // HEADS).transpose(1, 2)
+    qh, kh, vh = (t.view(rows, a, heads, D // heads).transpose(1, 2)
                   for t in (q, k, v))
     attn_mask = mask[:, None, None, :]
     return lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -433,37 +463,49 @@ def check_k2(rows: int, device, a: int = A) -> dict:
     return res
 
 
-def check_k3(rows: int, a: int, device, timed: bool) -> dict:
-    q, k, v, mask = k3_inputs(rows, a, rows + a, device)
-    got = packed_masked_attention(q, k, v, mask, HEADS)
+def check_k3(rows: int, a: int, heads: int, dtype, device,
+             stream: bool = False) -> dict:
+    """K3 against its plain version, a second run, an all-masked row and
+    masked keys; timed beside the plain version, SDPA and the bound, and with
+    ``stream`` the addcmul pass over the same bytes."""
+    tag = f"K3 rows={rows} A={a} heads={heads} {str(dtype)[6:]}"
+    q, k, v, mask = k3_inputs(rows, a, rows + a + heads, device, dtype)
+    got = packed_masked_attention(q, k, v, mask, heads)
     torch.cuda.synchronize()
-    expect = reference_masked_attention(q, k, v, mask, HEADS)
+    expect = reference_masked_attention(q, k, v, mask, heads)
     err = (got - expect).abs().max().item()
     if not math.isfinite(err) or err > K3_ATOL:
-        fail(f"K3 rows={rows} A={a}: max abs err {err} > {K3_ATOL}")
+        fail(f"{tag}: max abs err {err} > {K3_ATOL}")
+    if not torch.equal(got, packed_masked_attention(q, k, v, mask, heads)):
+        fail(f"{tag}: two runs on the same inputs differ")
     # an all-masked row: exactly 0, every other row's bits unchanged
     mask1 = mask.clone()
     mask1[1] = False
-    out1 = packed_masked_attention(q, k, v, mask1, HEADS)
+    out1 = packed_masked_attention(q, k, v, mask1, heads)
     keep = torch.arange(rows, device=device) != 1
     if torch.count_nonzero(out1[1]) or not torch.equal(out1[keep], got[keep]):
-        fail(f"K3 rows={rows} A={a}: all-masked row not 0 or not isolated")
+        fail(f"{tag}: all-masked row not 0 or not isolated")
     # masked keys get no weight: their v at 1e6 changes no bit
     v1 = torch.where(mask[..., None], v, torch.full_like(v, 1e6))
-    if not torch.equal(packed_masked_attention(q, k, v1, mask, HEADS), got):
-        fail(f"K3 rows={rows} A={a}: masked keys leak into the output")
-    res = {"rows": rows, "A": a, "max_abs_err": err}
-    if timed:
-        library = k3_library(q, k, v, mask)
-        res["library_max_abs_err"] = (
-            library().transpose(1, 2).reshape(rows, a, D) - expect
-        ).abs().max().item()
-        res["ms"] = time_ms(lambda: packed_masked_attention(q, k, v, mask,
-                                                            HEADS))
-        res["plain_ms"] = time_ms(lambda: reference_masked_attention(
-            q, k, v, mask, HEADS))
-        res["library_ms"] = time_ms(library)
-        res["bound_ms"], res["bound_by"] = k3_bound_ms(rows, a)
+    if not torch.equal(packed_masked_attention(q, k, v1, mask, heads), got):
+        fail(f"{tag}: masked keys leak into the output")
+    res = {"rows": rows, "A": a, "heads": heads, "dtype": str(dtype)[6:],
+           "max_abs_err": err, "bitwise_second_run": True}
+    library = k3_library(q, k, v, mask, heads)
+    res["library_max_abs_err"] = (
+        library().float().transpose(1, 2).reshape(rows, a, D) - expect
+    ).abs().max().item()
+    res["ms"] = time_ms(lambda: packed_masked_attention(q, k, v, mask, heads))
+    res["plain_ms"] = time_ms(lambda: reference_masked_attention(
+        q, k, v, mask, heads))
+    res["library_ms"] = time_ms(library)
+    res["bound_ms"], res["bound_by"] = k3_bound_ms(q, mask)
+    res["bound_frac"] = res["bound_ms"] / res["ms"]
+    res["valid_keys_per_row"] = mask.sum().item() / rows
+    res["bound_ms_all_keys"] = k3_bound_all_keys_ms(rows, a, q.element_size())
+    if stream:
+        o = torch.empty_like(q)
+        res["stream_ms"] = time_ms(lambda: torch.addcmul(q, k, v, out=o))
     return res
 
 
@@ -713,14 +755,14 @@ def main() -> int:
     k2 = check_k2(960, device)
     k2_wide = check_k2(960, device, A_WIDE)
     k2_past = check_k2(960, device, A_PAST)
-    # K3 timed at the bench's shape only
-    k3 = [check_k3(rows, a, device, timed=(i == 0))
-          for i, (rows, a) in enumerate(K3_SHAPES)]
+    k3 = [check_k3(rows, a, heads, dt, device, stream=(i == 0))
+          for i, (rows, a, heads, dt) in enumerate(K3_CASES)]
     # the device kernels behind one wrapper call, at the entries' shapes
     k1_args = k1_inputs(N_CASES, seed=0, device=device)
     k2_args = k1_inputs(960, seed=0, device=device)[:5] + [
         torch.randn(960, A, D, device=device)]
-    q, k, v, mask = k3_inputs(*K3_SHAPES[0], 0, device)
+    q, k, v, mask = k3_inputs(*K3_CASES[0][:2], 0, device)
+    q16, k16, v16 = (t.to(torch.bfloat16) for t in (q, k, v))
     dev_kernels = {
         "K1_fused_graph_attention": {tag: device_kernels(
             lambda: fused_graph_attention(*k1_args, HEADS, compute_dtype=dt))
@@ -729,8 +771,11 @@ def main() -> int:
             lambda: fused_graph_attention_backward(*k2_args, HEADS,
                                                    compute_dtype=dt))
             for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
-        "K3_packed_masked_attention": {"f32": device_kernels(
-            lambda: packed_masked_attention(q, k, v, mask, HEADS))},
+        "K3_packed_masked_attention": {
+            "f32": device_kernels(
+                lambda: packed_masked_attention(q, k, v, mask, HEADS)),
+            "bf16": device_kernels(
+                lambda: packed_masked_attention(q16, k16, v16, mask, HEADS))},
     }
     emit("kernels", t0, k1=k1, k1_a50=k1_wide, k1_a80=k1_past,
          k1_edges=k1_edges, k2=k2, k2_a50=k2_wide, k2_a80=k2_past, k3=k3,
@@ -794,13 +839,18 @@ def main() -> int:
         "replaces": "crowdnav_prediction_attngraph_tpu/ops/"
                     "masked_attention.py:50",
         "launches": sum(k3_by_path.values()), "launches_by_path": k3_by_path,
-        "shape": {"rows": K3_SHAPES[0][0], "A": K3_SHAPES[0][1], "D": D,
+        "shape": {"rows": K3_CASES[0][0], "A": K3_CASES[0][1], "D": D,
                   "heads": HEADS, "dtype": "f32"},
         **{key: k3[0][key] for key in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms",
-                                       "library_max_abs_err")},
-        "max_abs_err_by_shape": {f"rows{r['rows']}_a{r['A']}":
-                                 r["max_abs_err"] for r in k3},
+                                       "library_max_abs_err", "stream_ms",
+                                       "bound_frac", "valid_keys_per_row",
+                                       "bound_ms_all_keys",
+                                       "bitwise_second_run")},
+        "max_abs_err_by_shape": {
+            f"rows{r['rows']}_a{r['A']}_h{r['heads']}_{r['dtype']}":
+            r["max_abs_err"] for r in k3},
+        "by_shape": k3[1:],
         **per_call("K3_packed_masked_attention"),
         "ptxas": ptxas.get(masked_attention.KERNEL_ATTN, {}),
     }

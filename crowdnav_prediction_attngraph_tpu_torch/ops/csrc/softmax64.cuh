@@ -1,4 +1,4 @@
-// Device helpers shared by the port's kernels (K1, K2 and K3).
+// Device helpers shared by the port's kernels K1 and K2.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -143,10 +143,11 @@ def reference_fused_graph_attention_backward(
     return dx, dw_qkv, db_qkv, dw_out, db_out
 
 
-def _check(x, mask, num_heads, compute_dtype, **tensors):
+def _check(x, mask, num_heads, compute_dtype, dtypes=(torch.float32,),
+           **tensors):
     """Shapes, devices and dtypes of the kernels' inputs: ``tensors`` are
     named as in the signatures (w_qkv, b_qkv, w_out, b_out, g; K3's k and v,
-    with q as ``x``)."""
+    with q as ``x``). x and ``tensors`` share one dtype out of ``dtypes``."""
     if x.dim() != 3:
         raise ValueError(f"x must be (rows, A, D), got {tuple(x.shape)}")
     rows, A, D = x.shape
@@ -160,9 +161,12 @@ def _check(x, mask, num_heads, compute_dtype, **tensors):
                              f"got {tuple(t.shape)}")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, x on {device}")
-    for name, t in (("x", x), *tensors.items()):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"x must be {names}, got {x.dtype}")
+    for name, t in tensors.items():
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name} is {t.dtype}, x {x.dtype}: mixed dtypes")
     if mask.dtype != torch.bool:
         raise TypeError(f"mask must be bool, got {mask.dtype}")
     if D % num_heads:
@@ -174,21 +178,25 @@ def _check(x, mask, num_heads, compute_dtype, **tensors):
 
 # What the CUDA kernels take. K1 and K2 (tiled products plus per-(row, head)
 # attention): 1 <= A <= 256, head dim <= 128 and D % 8 == 0, for the 16-byte
-# copies of the products' tiles. K3: 1 <= A <= 64 and head dim <= 64.
+# copies of the products' tiles. K3 (key tiles with an online softmax): any
+# A >= 1 and head dim <= 256.
 K12_LIMITS = {"max_a": 256, "max_hd": 128, "d_multiple": 8}
-K3_LIMITS = {"max_a": 64, "max_hd": 64, "d_multiple": 1}
+K3_LIMITS = {"max_a": None, "max_hd": 256, "d_multiple": 1}
 
 
 def _check_kernel(x, num_heads, tensors, max_a, max_hd, d_multiple):
-    """What a CUDA kernel takes: 1 <= A <= ``max_a``, head dim <=
-    ``max_hd``, D a multiple of ``d_multiple``, the ``tensors`` given
-    contiguous (K1's and K2's w_out is laid out by the wrappers)."""
+    """What a CUDA kernel takes: 1 <= A <= ``max_a`` (no upper bound for
+    None), head dim <= ``max_hd``, D a multiple of ``d_multiple``, the
+    ``tensors`` given contiguous (K1's and K2's w_out is laid out by the
+    wrappers)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     rows, A, D = x.shape
-    if not 1 <= A <= max_a or D // num_heads > max_hd or D % d_multiple:
+    if (A < 1 or (max_a is not None and A > max_a)
+            or D // num_heads > max_hd or D % d_multiple):
         multiple = f", D % {d_multiple} == 0" if d_multiple > 1 else ""
-        raise ValueError(f"the kernel takes 1 <= A <= {max_a}, head dim <= "
+        a_range = "A >= 1" if max_a is None else f"1 <= A <= {max_a}"
+        raise ValueError(f"the kernel takes {a_range}, head dim <= "
                          f"{max_hd}{multiple}; got A={A}, D={D}, "
                          f"heads={num_heads}")
     for name, t in tensors.items():
@@ -373,11 +381,13 @@ _BIAS_SLICES = 16       # kSlices of csrc/fused_graph_attention_bwd.cu
 
 
 def reference_masked_attention(q, k, v, mask, num_heads: int):
-    """Plain PyTorch K3: q, k, v (rows, A, D) f32; mask (rows, A) bool, True =
-    valid key. Per head softmax(q_h k_h^T / sqrt(hd), masked keys left out)
-    v_h, in f32; a row with no valid key gives 0."""
+    """Plain PyTorch K3: q, k, v (rows, A, D) f32 or bf16; mask (rows, A)
+    bool, True = valid key. Per head softmax(q_h k_h^T / sqrt(hd), masked
+    keys left out) v_h, in f32 on q, k and v cast to f32 (as ``_attn_kernel``
+    casts them); a row with no valid key gives 0."""
     rows, A, D = q.shape
     hd = D // num_heads
+    q, k, v = q.float(), k.float(), v.float()
     qh = q.reshape(rows, A, num_heads, hd)
     kh = k.reshape(rows, A, num_heads, hd)
     vh = v.reshape(rows, A, num_heads, hd)
@@ -390,12 +400,13 @@ def reference_masked_attention(q, k, v, mask, num_heads: int):
 
 
 def packed_masked_attention(q, k, v, mask, num_heads: int):
-    """K3: (rows, A, D) f32 q, k, v and a (rows, A) bool key mask ->
-    (rows, A, D) f32. CUDA tensors launch the Hopper kernel (1 <= A <= 64,
-    D / num_heads <= 64, all contiguous); CPU tensors run
+    """K3: (rows, A, D) q, k, v, all f32 or all bf16, and a (rows, A) bool
+    key mask -> (rows, A, D) f32. CUDA tensors launch the Hopper kernel (any
+    A >= 1, D / num_heads <= 256, all contiguous); CPU tensors run
     :func:`reference_masked_attention`. It has no backward, as the JAX K3
     has none: with grad mode on, an input that requires grad raises."""
-    _check(q, mask, num_heads, torch.float32, k=k, v=v)
+    _check(q, mask, num_heads, torch.float32,
+           dtypes=(torch.float32, torch.bfloat16), k=k, v=v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("packed_masked_attention has no backward; call it "
                            "under torch.no_grad() or on tensors that do not "
@@ -405,12 +416,12 @@ def packed_masked_attention(q, k, v, mask, num_heads: int):
     _check_kernel(q, num_heads, {"q": q, "k": k, "v": v, "mask": mask},
                   **K3_LIMITS)
     rows, A, D = q.shape
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     fn = _kernel_fn(KERNEL_ATTN, "packed_masked_attention_forward",
-                    [_P] * 5 + [_I] * 4)
+                    [_P] * 5 + [_I] * 5)
     with _on_device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-                out.data_ptr(), rows, A, D, num_heads,
+        rc = fn(*_ptrs(q, k, v, mask, out), rows, A, D, num_heads,
+                int(q.dtype == torch.bfloat16),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"packed_masked_attention kernel launch failed: "

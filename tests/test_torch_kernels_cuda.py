@@ -25,9 +25,14 @@ both refuse A = 257 and head dim 136. K1, like K2, gives the same bits on
 two runs: every sum runs in a fixed order, without atomics.
 
 K3 tolerance: atol 2e-5 (the JAX kernel's own bound against its reference,
-tests/test_pallas_attention.py:15-26); an all-masked row is exactly 0 and
-leaves the other rows' bits alone; masked keys' v at 1e6 changes no bit
-(their softmax weight is exactly 0).
+tests/test_pallas_attention.py:15-26), for f32 and for bf16 q, k, v (read as
+bf16, computed in f32, as the plain version computes on their f32 casts); an
+all-masked row is exactly 0 and leaves the other rows' bits alone, also in
+a row whose first key tiles (keys 0-63, more than three tiles of 20) are all
+masked; masked keys' v at 1e6 changes no bit (they are skipped); two runs
+give the same bits. K3 is held at A = 1 to 300 (several key tiles, an online
+softmax), at head dims 48, 65 (the plain-load path, in f32 and bf16), 12
+(bf16 plain loads), 128 and 256 (its limit), and refuses head dim 257.
 """
 
 import math
@@ -213,30 +218,56 @@ def test_k2_rejects_what_it_does_not_take(cuda_device):
                                        .contiguous().transpose(0, 1), HEADS)
 
 
-def k3_inputs(rows, a, seed, device):
+def k3_inputs(rows, a, seed, device, d=D, dtype=torch.float32):
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(rows, a, D, generator=g) for _ in range(3))
+    q, k, v = (torch.randn(rows, a, d, generator=g).to(dtype)
+               for _ in range(3))
     det = torch.randint(1, a + 1, (rows,), generator=g)
     mask = torch.arange(a)[None, :] < det[:, None]
     return [t.to(device) for t in (q, k, v, mask)]
 
 
+# (rows, A, D, heads, dtype): the bench's A and the old limits, A = 1, past
+# one key tile (65, 80), several tiles (256, 300), head dims 48, 65 (not a
+# multiple of 4: the plain-load path), 128 and 256, and bf16 inputs, by
+# 16-byte copies (head dim 64) and by plain loads (head dims 65 and 12)
+K3_CASES = [(100, 20, D, HEADS, torch.float32), (7, 64, D, HEADS, torch.float32),
+            (3, 5, D, HEADS, torch.float32), (9, 1, D, HEADS, torch.float32),
+            (5, 65, D, HEADS, torch.float32), (7, 80, D, HEADS, torch.float32),
+            (3, 256, D, HEADS, torch.float32),
+            (2, 300, D, HEADS, torch.float32),
+            (5, 33, 384, HEADS, torch.float32),
+            (3, 20, 520, HEADS, torch.float32), (4, 20, D, 4, torch.float32),
+            (3, 70, D, 2, torch.float32), (100, 20, D, HEADS, torch.bfloat16),
+            (7, 80, D, HEADS, torch.bfloat16), (3, 20, 520, HEADS, torch.bfloat16),
+            (3, 20, 96, HEADS, torch.bfloat16)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,a", [(100, 20), (7, 64), (3, 5)])
-def test_k3_matches_plain(cuda_device, rows, a):
-    args = k3_inputs(rows, a, rows + a, cuda_device)
+@pytest.mark.parametrize("rows,a,d,heads,dtype", K3_CASES)
+def test_k3_matches_plain(cuda_device, rows, a, d, heads, dtype):
+    args = k3_inputs(rows, a, rows + a, cuda_device, d, dtype)
     before = packed_masked_attention.launches
-    got = packed_masked_attention(*args, HEADS)
+    got = packed_masked_attention(*args, heads)
     torch.cuda.synchronize()
     assert packed_masked_attention.launches == before + 1
-    expect = reference_masked_attention(*args, HEADS)
+    assert got.dtype == torch.float32
+    expect = reference_masked_attention(*args, heads)
     torch.testing.assert_close(got, expect, rtol=0, atol=2e-5)
+    assert torch.equal(got, packed_masked_attention(*args, heads))
 
 
 @pytest.mark.cuda
-def test_k3_all_masked_row_and_masked_keys(cuda_device):
-    q, k, v, mask = k3_inputs(8, A, 3, cuda_device)
+@pytest.mark.parametrize("a", [A, 80])
+def test_k3_all_masked_row_and_masked_keys(cuda_device, a):
+    q, k, v, mask = k3_inputs(8, a, 3, cuda_device)
+    if a > 64:
+        # a row whose first key tiles (keys 0-63, more than three tiles of
+        # 20) are all masked
+        mask[5] = torch.arange(a, device=cuda_device) >= 64
     out0 = packed_masked_attention(q, k, v, mask, HEADS)
+    torch.testing.assert_close(out0, reference_masked_attention(
+        q, k, v, mask, HEADS), rtol=0, atol=2e-5)
     mask1 = mask.clone()
     mask1[3] = False
     out1 = packed_masked_attention(q, k, v, mask1, HEADS)
@@ -249,12 +280,10 @@ def test_k3_all_masked_row_and_masked_keys(cuda_device):
 
 @pytest.mark.cuda
 def test_k3_rejects_what_it_does_not_take(cuda_device):
-    q, k, v, mask = k3_inputs(2, 65, 0, cuda_device)
+    q, k, v, mask = k3_inputs(2, A, 0, cuda_device, 514)
     with pytest.raises(ValueError):
-        packed_masked_attention(q, k, v, mask, HEADS)
+        packed_masked_attention(q, k, v, mask, 2)       # head dim 257
     q, k, v, mask = k3_inputs(2, A, 0, cuda_device)
-    with pytest.raises(ValueError):
-        packed_masked_attention(q, k, v, mask, 4)       # head dim 128
     with pytest.raises(ValueError):
         packed_masked_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
                                 k, v, mask, HEADS)

@@ -5,7 +5,11 @@ tests/test_torch_kernels_cuda.py.
 
 * plain K3 vs the JAX Pallas kernel in interpret mode: atol 2e-5, the
   kernel's own bound against its reference (tests/test_pallas_attention.py
-  :15-26), at that test's shapes and at A = 50 (10-50 human crowds);
+  :15-26), at that test's shapes and at A = 50 (10-50 human crowds), and at
+  the shapes the Hopper kernel now takes: A = 300 and A = 1, head dims 256
+  and 96, and bf16 q, k, v (both sides compute on their f32 casts). The
+  JAX kernel returns NaN when num_heads < 128 // head dim (its heads per
+  call exceed the heads), so no case here has such a shape;
 * plain K3 vs the JAX XLA reference: atol 1e-5 (same math in f32, sums in
   another order);
 * a row with no valid key gives 0, and no other row changes (the JAX
@@ -13,8 +17,9 @@ tests/test_torch_kernels_cuda.py.
   its packing strip, so the JAX side is not asked);
 * masked keys do not leak: their v set to 1e6 leaves the output unchanged
   to 1e-5 (tests/test_pallas_attention.py:206-218);
-* on the CPU the wrapper is the plain version, and it raises where
-  autograd would need a backward (the JAX K3 has no VJP);
+* on the CPU the wrapper is the plain version (bf16 in, f32 out; mixed
+  dtypes raise), and it raises where autograd would need a backward (the
+  JAX K3 has no VJP);
 * ``ops.bench_edges`` at a tiny size on the CPU: finite, positive rates,
   keyed as the JAX package's output is.
 """
@@ -39,9 +44,9 @@ D, H = 512, 8
 SHAPES = [(13, 20), (32, 6), (7, 32), (5, 50)]
 
 
-def inputs(rows, A, seed):
+def inputs(rows, A, seed, d=D):
     rng = np.random.RandomState(seed)
-    q, k, v = (rng.randn(rows, A, D).astype(np.float32) for _ in range(3))
+    q, k, v = (rng.randn(rows, A, d).astype(np.float32) for _ in range(3))
     det = rng.randint(1, A + 1, rows)
     mask = np.arange(A)[None, :] < det[:, None]
     return q, k, v, mask
@@ -57,6 +62,29 @@ def test_plain_matches_jax_kernel_interpret(rows, A):
     expect = np.asarray(j_packed_masked_attention(
         *[jnp.asarray(a) for a in arrs], H, interpret=True))
     got = reference_masked_attention(*torch_args(arrs), H)
+    np.testing.assert_allclose(got.numpy(), expect, atol=2e-5)
+
+
+# (rows, A, D, heads, dtype): several of the JAX kernel's 32-row tiles, one
+# agent, head dims 256 and 96, and bf16 inputs
+WIDE = [(2, 300, 512, 8, "float32"), (3, 70, 512, 2, "float32"),
+        (2, 5, 96, 1, "float32"), (4, 1, 512, 8, "float32"),
+        (3, 20, 512, 8, "bfloat16")]
+
+
+@pytest.mark.parametrize("rows,A,d,heads,dtype", WIDE)
+def test_plain_matches_jax_kernel_interpret_wide(rows, A, d, heads, dtype):
+    q, k, v, mask = inputs(rows, A, seed=rows + A + d, d=d)
+    tq, tk, tv = (torch.from_numpy(a).to(getattr(torch, dtype))
+                  for a in (q, k, v))
+    # the same values on both sides: the bf16 ones exactly, as f32 arrays
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), dtype=getattr(jnp, dtype))
+                  for t in (tq, tk, tv))
+    expect = np.asarray(j_packed_masked_attention(
+        jq, jk, jv, jnp.asarray(mask), heads, interpret=True))
+    got = reference_masked_attention(tq, tk, tv, torch.from_numpy(mask),
+                                     heads)
+    assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), expect, atol=2e-5)
 
 
@@ -97,6 +125,23 @@ def test_wrapper_on_cpu_is_the_plain_version():
                                reference_masked_attention(*args, H),
                                rtol=0, atol=0)
     assert packed_masked_attention.launches == before
+
+
+def test_wrapper_takes_bf16_and_refuses_mixed_dtypes():
+    q, k, v, mask = torch_args(inputs(4, 20, seed=6))
+    bf = [t.to(torch.bfloat16) for t in (q, k, v)]
+    out = packed_masked_attention(*bf, mask, H)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(
+        out, reference_masked_attention(*[t.float() for t in bf], mask, H),
+        rtol=0, atol=0)
+    # f32 inputs keep every bit of the f32 plain version
+    torch.testing.assert_close(packed_masked_attention(q, k, v, mask, H),
+                               reference_masked_attention(q, k, v, mask, H),
+                               rtol=0, atol=0)
+    for mixed in ((bf[0], k, v), (q, bf[1], v), (q, k, bf[2])):
+        with pytest.raises(TypeError):
+            packed_masked_attention(*mixed, mask, H)
 
 
 def test_wrapper_raises_under_grad():

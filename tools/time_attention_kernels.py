@@ -1,5 +1,5 @@
-"""Time K1 and K2 of a checkout of the port on the card, and optionally a
-flagship train iteration.
+"""Time K1, K2 and K3 of a checkout of the port on the card, and optionally
+a flagship train iteration.
 
   python tools/time_attention_kernels.py [--root DIR] [--train-iters N]
 
@@ -7,7 +7,9 @@ flagship train iteration.
 package to time (default: this repo), so two versions of the kernels (an
 unpacked ``git archive`` of another commit, and this tree) can be timed in
 turns within one run on one card, one process each. The inputs are made from
-a seed, as in ``chip_smoke.py``. Each time is the median over 5 groups of
+a seed, as in ``chip_smoke.py`` (K3's from seed 0 with numpy, as the edges/s
+bench makes them: f32 at the bench's rows 4096 x A 20 and at 960 x 50).
+Each time is the median over 5 groups of
 back-to-back calls, each group between one pair of CUDA events, divided by
 its call count. ``--train-iters N`` also times N flagship ``train_iteration``s
 after one warm-up (host clock around a synchronise; same recipe and
@@ -31,6 +33,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D, HEADS = 512, 8
 K1_SHAPES = ((32, 20), (64, 20), (960, 20), (960, 50))
 K2_SHAPES = ((960, 20), (960, 50))
+K3_SHAPES = ((4096, 20), (960, 50))
 
 
 def time_ms(fn, reps: int, groups: int = 5) -> float:
@@ -97,12 +100,19 @@ def main() -> int:
         print("time_attention_kernels: needs a card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
+    from crowdnav_prediction_attngraph_tpu_torch.ops import bench_edges
     from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
-        fused_graph_attention, fused_graph_attention_backward)
+        fused_graph_attention, fused_graph_attention_backward,
+        packed_masked_attention)
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {"root": os.path.abspath(args.root),
-           "device": torch.cuda.get_device_name(0), "k1": {}, "k2": {}}
+           "device": torch.cuda.get_device_name(0), "k1": {}, "k2": {},
+           "k3": {}}
+    for rows, a in K3_SHAPES:
+        q, k, v, mask = bench_edges._inputs(rows, a, D, device)
+        res["k3"][f"f32_{rows}x{a}"] = time_ms(
+            lambda: packed_masked_attention(q, k, v, mask, HEADS), reps=30)
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for rows, a in K1_SHAPES:
             x, mask, w_qkv, b_qkv, w_out, b_out, _ = inputs(rows, a, rows, device)
