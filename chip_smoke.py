@@ -12,9 +12,9 @@ Phases, each printing one JSON line with its seconds before the next starts:
 3. kernels: holds K1 (fused graph attention) against its plain PyTorch
    version on the card at every shape the paths give it (rows = 32 for the
    evaluation's cases, 64 for the rollout's envs, 960 for the update's
-   minibatch; A = 20 humans, D = 512, 8 heads), at rows = 960, A = 50
-   (the widest crowd of the repo's configs) and at rows = 960, A = 80 (past
-   the kernels' single-chunk attention), in f32 (atol 3e-4) and bf16
+   minibatch; A = 20 humans, D = 512, 8 heads), at rows = 64 and 960,
+   A = 50 (BASELINE config 5's rollout and update) and at rows = 960,
+   A = 80 (past the kernels' resident attention), in f32 (atol 3e-4) and bf16
    (atol 3e-2), with a second run that must give the same bits and an
    all-masked row checked for isolation, and in bf16 at the edges/s
    bench's own inputs (``bench_edges.sweep_inputs``: rows 480, 1920 and
@@ -64,7 +64,24 @@ Phases, each printing one JSON line with its seconds before the next starts:
    a rate or time that is not finite and positive, or on launch counts
    other than the bench's own (K3 once per timed or warm-up call of
    ``single_device``, K1 once per such call of ``fused_sweep`` at each row
-   count, K2 never).
+   count, K2 never);
+7. scripted: the scripted baselines through ``evaluate`` (32 cases each,
+   one batch, cut at 40 steps): the ORCA and the social-force robot in
+   CrowdSimVarNum with 20 ORCA humans, and the ORCA robot among 20
+   social-force humans; fails on a kernel launch (the path has none), a
+   non-finite metric, or outcome rates that do not sum to 1;
+8. variants_eval: the network policy from a seeded ``init_params``
+   (untrained: rates printed, not gated) under BASELINE config 1
+   (CrowdSimVarNum, 5 humans), config 2 (CrowdSimPred const_vel and truth,
+   10 humans) and the truth env with a visible robot, 32 cases each (cut
+   at 40 steps), the counts zeroed before and read after each; fails
+   unless K1 launched in each (K2 and K3 never);
+9. variants_train: one PPO iteration of BASELINE config 5 as the train CLI
+   builds it (CrowdSimPredRealGST, 10-50 humans: A = 50; 64 envs x 30
+   steps; the committed GST export), K1 at 64 x 50 and 960 x 50 (41
+   launches) and K2 at 960 x 50 (10); then the PPO gradient of a further
+   rollout's first minibatch through the kernels against the plain
+   versions, to the train phase's bounds.
 
 The kernels line also gives each kernel's device launches per call and the
 registers and spills that ptxas reported for each of its CUDA functions.
@@ -77,6 +94,7 @@ fails ends the run with a non-zero exit code and no result line.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -89,9 +107,11 @@ import time
 
 import torch
 
+from crowdnav_prediction_attngraph_tpu_torch import train as train_cli
 from crowdnav_prediction_attngraph_tpu_torch.algo import evaluation
 from crowdnav_prediction_attngraph_tpu_torch.algo import ppo
-from crowdnav_prediction_attngraph_tpu_torch.config import config_from_snapshot
+from crowdnav_prediction_attngraph_tpu_torch.config import (
+    build_config, config_from_snapshot, pred_config, varnum_config)
 from crowdnav_prediction_attngraph_tpu_torch.env import crowd_sim
 from crowdnav_prediction_attngraph_tpu_torch.env.pretext import pretext_process
 from crowdnav_prediction_attngraph_tpu_torch.models import policy as pmod
@@ -113,11 +133,22 @@ MODEL_DIR = os.path.join(REPO, "trained_models",
                          "GST_predictor_rand_tpu_r5_selfgst")
 N_CASES = 32
 MIN_SUCCESS = 0.70
+# the scripted and variant suites' depth: 40 steps (10 s of an episode's
+# 49), so that their seven suites take well under 1 min (with the full
+# episodes they took 229 s on an H100 80GB HBM3 at 700 W, 0.06-0.23 s a
+# lock-step step, most of it ORCA); the 500-case scores of the test CLI
+# run the full episodes. A scripted robot needs ~18 s to its goal on
+# average, so few cases end in success within the cut: the scripted phase
+# requires one at least, over its three suites
+SUITE_STEPS = 40
 TRAIN_ITERS = 2
 K1_ROWS = (N_CASES, 64, 960)
 A, D, HEADS = 20, 512, 8
 A_WIDE = 50            # the widest crowd of the repo's configs (10-50 humans)
 A_PAST = 80            # past K1's and K2's single-chunk attention (A <= 64)
+# variants_eval's crowds: config 1 (5 humans) and config 2 (10 humans), at
+# rows N_CASES
+A_VARIANTS = (5, 10)
 # K3 (rows, A, heads, dtype): the edges/s bench's shape first (the kernels
 # line reports it), the wide crowd, one and several key tiles past the
 # bench's, A = 256, head dim 256 and bf16 inputs at the bench's rows
@@ -126,6 +157,15 @@ K3_CASES = ((4096, 20, HEADS, torch.float32), (960, A_WIDE, HEADS, torch.float32
             (16, 256, HEADS, torch.float32), (4096, 20, 2, torch.float32),
             (4096, 20, HEADS, torch.bfloat16))
 K3_ATOL = 2e-5
+# the shapes the kernels take since their limits went, each against its
+# plain version and timed: K1 and K2 (rows, A, D, heads) past A = 256 (the
+# tiled attention), head dims 136 and 256 (column chunks), D = 100 (rows not
+# a multiple of 16 bytes); K3 (rows, A, D, heads) at head dims 320 and 512
+# (split into column chunks of 256)
+ANY_K12 = ((64, 300, D, HEADS), (960, 257, D, HEADS), (960, A, 1088, HEADS),
+           (960, A, 1024, 4), (960, A, 100, 4))
+REPS_ANY = {(64, 300): 3, (960, 257): 2, (960, A): 10}
+ANY_K3 = ((1024, 20, 1280, 4), (1024, 20, 2048, 4))
 # NVIDIA H100 SXM data-sheet peaks (dense) and memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -162,23 +202,24 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def k1_inputs(rows: int, seed: int, device, a: int = A):
+def k1_inputs(rows: int, seed: int, device, a: int = A, d: int = D):
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn(rows, a, D, generator=g)
-    w_qkv = torch.randn(D, 3 * D, generator=g) / math.sqrt(D)
-    b_qkv = torch.randn(3 * D, generator=g) * 0.01
-    w_out = torch.randn(D, D, generator=g) / math.sqrt(D)
-    b_out = torch.randn(D, generator=g) * 0.01
+    x = torch.randn(rows, a, d, generator=g)
+    w_qkv = torch.randn(d, 3 * d, generator=g) / math.sqrt(d)
+    b_qkv = torch.randn(3 * d, generator=g) * 0.01
+    w_out = torch.randn(d, d, generator=g) / math.sqrt(d)
+    b_out = torch.randn(d, generator=g) * 0.01
     det = torch.randint(1, a + 1, (rows,), generator=g)
     mask = torch.arange(a)[None, :] < det[:, None]
     return [t.to(device) for t in (x, mask, w_qkv, b_qkv, w_out, b_out)]
 
 
-def k3_inputs(rows: int, a: int, seed: int, device, dtype=torch.float32):
+def k3_inputs(rows: int, a: int, seed: int, device, dtype=torch.float32,
+              d: int = D):
     """q, k, v (in ``dtype``) and a key mask with at least one valid key per
     row, made on the card from a seed."""
     g = torch.Generator(device).manual_seed(seed)
-    q, k, v = (torch.randn(rows, a, D, generator=g, device=device).to(dtype)
+    q, k, v = (torch.randn(rows, a, d, generator=g, device=device).to(dtype)
                for _ in range(3))
     det = torch.randint(1, a + 1, (rows,), generator=g, device=device)
     mask = torch.arange(a, device=device)[None, :] < det[:, None]
@@ -266,29 +307,28 @@ def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_bound_ms(rows: int, dtype, a: int = A) -> tuple:
+def k1_bound_ms(rows: int, dtype, a: int = A, d: int = D) -> tuple:
     """K1's work at these shapes: each input read once, the output written
     once; the QKV projection, QK^T and PV, and the output projection."""
     tokens = rows * a
-    flops = (2 * tokens * D * 3 * D
-             + 2 * 2 * rows * HEADS * a * a * (D // HEADS)
-             + 2 * tokens * D * D)
-    nbytes = (4 * tokens * D + tokens
-              + 4 * (D * 3 * D + 3 * D + D * D + D)
-              + 4 * tokens * D)
+    flops = 2 * tokens * d * 3 * d + 2 * 2 * rows * a * a * d \
+        + 2 * tokens * d * d
+    nbytes = (4 * tokens * d + tokens
+              + 4 * (d * 3 * d + 3 * d + d * d + d)
+              + 4 * tokens * d)
     return bound_ms(flops, nbytes, dtype)
 
 
-def k2_bound_ms(rows: int, dtype, a: int = A) -> tuple:
+def k2_bound_ms(rows: int, dtype, a: int = A, d: int = D) -> tuple:
     """K2's work as the TPU kernel does it, not counting the port's scratch:
     x, g, the mask and the weights read once, dx and the four weight
     gradients written once; 22 T D^2 FLOP of projections (q/k/v recompute
     6, dattn 2, dx 6, dW_qkv 6, dW_out 2) and 12 rows A^2 D of attention
     (logits, P v, dv, dP, dq, dk)."""
     tokens = rows * a
-    flops = 22 * tokens * D * D + 12 * rows * a * a * D
-    nbytes = (4 * 2 * tokens * D + tokens + 4 * (D * 3 * D + 3 * D + D * D)
-              + 4 * tokens * D + 4 * (D * 3 * D + 3 * D + D * D + D))
+    flops = 22 * tokens * d * d + 12 * rows * a * a * d
+    nbytes = (4 * 2 * tokens * d + tokens + 4 * (d * 3 * d + 3 * d + d * d)
+              + 4 * tokens * d + 4 * (d * 3 * d + 3 * d + d * d + d))
     return bound_ms(flops, nbytes, dtype)
 
 
@@ -305,39 +345,41 @@ def k3_bound_ms(q, mask) -> tuple:
     return bound_ms(flops, nbytes, torch.float32)
 
 
-def k3_bound_all_keys_ms(rows: int, a: int, in_bytes: int) -> float:
+def k3_bound_all_keys_ms(rows: int, a: int, in_bytes: int,
+                         d: int = D) -> float:
     """The bound as if every key were valid (the earlier yardstick): all
     of q, k and v read, all (query, key) pairs computed."""
-    flops = 4 * rows * a * a * D
-    nbytes = (3 * in_bytes + 4) * rows * a * D + rows * a
+    flops = 4 * rows * a * a * d
+    nbytes = (3 * in_bytes + 4) * rows * a * d + rows * a
     return bound_ms(flops, nbytes, torch.float32)[0]
 
 
-def k1_library(x, mask, w_qkv, b_qkv, w_out, b_out, dtype):
+def k1_library(x, mask, w_qkv, b_qkv, w_out, b_out, dtype, heads=HEADS):
     """One PyTorch composition of the same function (yardstick only):
     addmm -> scaled_dot_product_attention -> addmm in the compute dtype."""
-    rows, a = x.shape[:2]
+    rows, a, d = x.shape
     xc, wq, wo = x.to(dtype), w_qkv.to(dtype), w_out.to(dtype)
     bq, bo = b_qkv.to(dtype), b_out.to(dtype)
     attn_mask = mask[:, None, None, :]
 
     def run(xc=xc, wq=wq, bq=bq, wo=wo, bo=bo):
-        qkv = torch.addmm(bq, xc.reshape(-1, D), wq).reshape(rows, a, 3, HEADS,
-                                                             D // HEADS)
+        qkv = torch.addmm(bq, xc.reshape(-1, d), wq).reshape(rows, a, 3, heads,
+                                                             d // heads)
         q, k, v = qkv.permute(2, 0, 3, 1, 4)
         o = torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask)
-        return torch.addmm(bo, o.transpose(1, 2).reshape(-1, D), wo)
+        return torch.addmm(bo, o.transpose(1, 2).reshape(-1, d), wo)
     return run
 
 
-def k2_library(x, mask, w_qkv, b_qkv, w_out, b_out, g, dtype):
+def k2_library(x, mask, w_qkv, b_qkv, w_out, b_out, g, dtype, heads=HEADS):
     """The backward of :func:`k1_library` by autograd (yardstick only): the
     graph is built once, each call runs only the backward."""
     leaves = [t.to(dtype).requires_grad_(True)
               for t in (x, w_qkv, b_qkv, w_out, b_out)]
-    out = k1_library(x, mask, w_qkv, b_qkv, w_out, b_out, dtype)(*leaves)
-    gc = g.reshape(-1, D).to(dtype)
+    out = k1_library(x, mask, w_qkv, b_qkv, w_out, b_out, dtype,
+                     heads)(*leaves)
+    gc = g.reshape(-1, x.shape[-1]).to(dtype)
     return lambda: torch.autograd.grad(out, leaves, gc, retain_graph=True)
 
 
@@ -347,50 +389,52 @@ def k3_library(q, k, v, mask, heads: int = HEADS):
     hd) views of the same inputs, in their dtype, its output left in that
     layout. Rows with no valid key differ (NaN there); the inputs here all
     have one."""
-    rows, a = q.shape[:2]
-    qh, kh, vh = (t.view(rows, a, heads, D // heads).transpose(1, 2)
+    rows, a, d = q.shape
+    qh, kh, vh = (t.view(rows, a, heads, d // heads).transpose(1, 2)
                   for t in (q, k, v))
     attn_mask = mask[:, None, None, :]
     return lambda: torch.nn.functional.scaled_dot_product_attention(
         qh, kh, vh, attn_mask=attn_mask)
 
 
-def check_k1(rows: int, device, a: int = A) -> dict:
-    args = k1_inputs(rows, seed=rows, device=device, a=a)
-    res = {"rows": rows, "A": a}
+def check_k1(rows: int, device, a: int = A, d: int = D,
+             heads: int = HEADS, reps: int = 30) -> dict:
+    args = k1_inputs(rows, seed=rows, device=device, a=a, d=d)
+    res = {"rows": rows, "A": a, "D": d, "heads": heads}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        got = fused_graph_attention(*args, HEADS, compute_dtype=dtype)
+        got = fused_graph_attention(*args, heads, compute_dtype=dtype)
         torch.cuda.synchronize()
-        expect = reference_fused_graph_attention(*args, HEADS,
+        expect = reference_fused_graph_attention(*args, heads,
                                                  compute_dtype=dtype)
         err = (got - expect).abs().max().item()
         if not math.isfinite(err) or err > ATOL[dtype]:
             fail(f"K1 {tag} rows={rows}: max abs err {err} > {ATOL[dtype]}")
         res[f"max_abs_err_{tag}"] = err
-        if not torch.equal(got, fused_graph_attention(*args, HEADS,
+        if not torch.equal(got, fused_graph_attention(*args, heads,
                                                       compute_dtype=dtype)):
             fail(f"K1 {tag} rows={rows} A={a}: two runs on the same inputs "
                  f"differ")
         # all-masked row: output b_out, other rows untouched
         x, mask = args[0].clone(), args[1].clone()
         mask[1] = False
-        out0 = fused_graph_attention(x, mask, *args[2:], HEADS,
+        out0 = fused_graph_attention(x, mask, *args[2:], heads,
                                      compute_dtype=dtype)
         x[1] = 1e4
-        out1 = fused_graph_attention(x, mask, *args[2:], HEADS,
+        out1 = fused_graph_attention(x, mask, *args[2:], heads,
                                      compute_dtype=dtype)
         keep = torch.arange(rows, device=device) != 1
-        if not (torch.equal(out0[1], args[5].expand(a, D))
+        if not (torch.equal(out0[1], args[5].expand(a, d))
                 and torch.equal(out0[keep], out1[keep])):
             fail(f"K1 {tag} rows={rows}: all-masked row isolation broken")
         res[f"kernel_ms_{tag}"] = time_ms(lambda: fused_graph_attention(
-            *args, HEADS, compute_dtype=dtype))
+            *args, heads, compute_dtype=dtype), reps)
         res[f"plain_ms_{tag}"] = time_ms(
-            lambda: reference_fused_graph_attention(*args, HEADS,
-                                                    compute_dtype=dtype))
-        res[f"library_ms_{tag}"] = time_ms(k1_library(*args, dtype))
-        res[f"bound_ms_{tag}"], res[f"bound_by_{tag}"] = k1_bound_ms(rows,
-                                                                     dtype, a)
+            lambda: reference_fused_graph_attention(*args, heads,
+                                                    compute_dtype=dtype), reps)
+        res[f"library_ms_{tag}"] = time_ms(k1_library(*args, dtype, heads),
+                                           reps)
+        res[f"bound_ms_{tag}"], res[f"bound_by_{tag}"] = k1_bound_ms(
+            rows, dtype, a, d)
     return res
 
 
@@ -420,19 +464,20 @@ def check_k1_edges(device) -> dict:
     return res
 
 
-def check_k2(rows: int, device, a: int = A) -> dict:
+def check_k2(rows: int, device, a: int = A, d: int = D,
+             heads: int = HEADS, reps: int = 10) -> dict:
     x, mask, w_qkv, b_qkv, w_out, b_out = k1_inputs(rows, seed=rows + 7,
-                                                    device=device, a=a)
+                                                    device=device, a=a, d=d)
     mask[1] = False                                   # an all-masked row
-    g = torch.randn(rows, a, D, generator=torch.Generator().manual_seed(
+    g = torch.randn(rows, a, d, generator=torch.Generator().manual_seed(
         rows)).to(device)
     args = (x, mask, w_qkv, b_qkv, w_out, g)
-    res = {"rows": rows, "A": a}
+    res = {"rows": rows, "A": a, "D": d, "heads": heads}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        got = fused_graph_attention_backward(*args, HEADS, compute_dtype=dtype)
+        got = fused_graph_attention_backward(*args, heads, compute_dtype=dtype)
         torch.cuda.synchronize()
         expect = reference_fused_graph_attention_backward(
-            *args, HEADS, compute_dtype=dtype)
+            *args, heads, compute_dtype=dtype)
         errs = {}
         for name, t, e in zip(GRADS, got, expect):
             err = (t - e).abs().max().item()
@@ -441,35 +486,36 @@ def check_k2(rows: int, device, a: int = A) -> dict:
             ok = (torch.allclose(t, e, rtol=1e-3, atol=5e-3)
                   if dtype == torch.float32 else err <= K2_BF16_REL * scale)
             if not (ok and math.isfinite(err)):
-                fail(f"K2 {tag} rows={rows} {name}: max abs err {err} "
-                     f"(largest entry {scale})")
+                fail(f"K2 {tag} rows={rows} A={a} D={d} {name}: max abs err "
+                     f"{err} (largest entry {scale})")
         if torch.count_nonzero(got[0][1]):
             fail(f"K2 {tag}: the all-masked row's dx is not 0")
-        again = fused_graph_attention_backward(*args, HEADS,
+        again = fused_graph_attention_backward(*args, heads,
                                                compute_dtype=dtype)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        if not all(torch.equal(u, v) for u, v in zip(got, again)):
             fail(f"K2 {tag}: two runs on the same inputs differ")
         res[f"max_abs_err_{tag}"] = max(errs.values())
         res[f"max_abs_err_by_grad_{tag}"] = errs
         res[f"kernel_ms_{tag}"] = time_ms(lambda: fused_graph_attention_backward(
-            *args, HEADS, compute_dtype=dtype), reps=10)
+            *args, heads, compute_dtype=dtype), reps)
         res[f"plain_ms_{tag}"] = time_ms(
             lambda: reference_fused_graph_attention_backward(
-                *args, HEADS, compute_dtype=dtype), reps=10)
+                *args, heads, compute_dtype=dtype), reps)
         res[f"library_ms_{tag}"] = time_ms(
-            k2_library(x, mask, w_qkv, b_qkv, w_out, b_out, g, dtype), reps=10)
-        res[f"bound_ms_{tag}"], res[f"bound_by_{tag}"] = k2_bound_ms(rows,
-                                                                     dtype, a)
+            k2_library(x, mask, w_qkv, b_qkv, w_out, b_out, g, dtype, heads),
+            reps)
+        res[f"bound_ms_{tag}"], res[f"bound_by_{tag}"] = k2_bound_ms(
+            rows, dtype, a, d)
     return res
 
 
 def check_k3(rows: int, a: int, heads: int, dtype, device,
-             stream: bool = False) -> dict:
+             stream: bool = False, d: int = D) -> dict:
     """K3 against its plain version, a second run, an all-masked row and
     masked keys; timed beside the plain version, SDPA and the bound, and with
     ``stream`` the addcmul pass over the same bytes."""
-    tag = f"K3 rows={rows} A={a} heads={heads} {str(dtype)[6:]}"
-    q, k, v, mask = k3_inputs(rows, a, rows + a + heads, device, dtype)
+    tag = f"K3 rows={rows} A={a} D={d} heads={heads} {str(dtype)[6:]}"
+    q, k, v, mask = k3_inputs(rows, a, rows + a + heads, device, dtype, d)
     got = packed_masked_attention(q, k, v, mask, heads)
     torch.cuda.synchronize()
     expect = reference_masked_attention(q, k, v, mask, heads)
@@ -489,11 +535,12 @@ def check_k3(rows: int, a: int, heads: int, dtype, device,
     v1 = torch.where(mask[..., None], v, torch.full_like(v, 1e6))
     if not torch.equal(packed_masked_attention(q, k, v1, mask, heads), got):
         fail(f"{tag}: masked keys leak into the output")
-    res = {"rows": rows, "A": a, "heads": heads, "dtype": str(dtype)[6:],
-           "max_abs_err": err, "bitwise_second_run": True}
+    res = {"rows": rows, "A": a, "D": d, "heads": heads,
+           "dtype": str(dtype)[6:], "max_abs_err": err,
+           "bitwise_second_run": True}
     library = k3_library(q, k, v, mask, heads)
     res["library_max_abs_err"] = (
-        library().float().transpose(1, 2).reshape(rows, a, D) - expect
+        library().float().transpose(1, 2).reshape(rows, a, d) - expect
     ).abs().max().item()
     res["ms"] = time_ms(lambda: packed_masked_attention(q, k, v, mask, heads))
     res["plain_ms"] = time_ms(lambda: reference_masked_attention(
@@ -502,7 +549,8 @@ def check_k3(rows: int, a: int, heads: int, dtype, device,
     res["bound_ms"], res["bound_by"] = k3_bound_ms(q, mask)
     res["bound_frac"] = res["bound_ms"] / res["ms"]
     res["valid_keys_per_row"] = mask.sum().item() / rows
-    res["bound_ms_all_keys"] = k3_bound_all_keys_ms(rows, a, q.element_size())
+    res["bound_ms_all_keys"] = k3_bound_all_keys_ms(rows, a, q.element_size(),
+                                                    d)
     if stream:
         o = torch.empty_like(q)
         res["stream_ms"] = time_ms(lambda: torch.addcmul(q, k, v, out=o))
@@ -587,6 +635,47 @@ def phase_evaluate(cfg, gst, device) -> dict:
     return launches
 
 
+def grad_check(cfg, model, batch, device) -> tuple:
+    """The PPO loss gradient of the batch's first minibatch through the
+    kernels against the same through the plain versions on the card:
+    (cosine over all params, relative error over all params, the worst
+    attention-block leaf {"name", "rel_err"}); fails past the bounds."""
+    p = cfg.ppo
+    returns, adv_n = ppo.advantages(cfg, batch)
+    idx = torch.arange(p.num_processes // p.num_mini_batch, device=device)
+    names, params = zip(*model.named_parameters())
+
+    def grad():
+        loss, _ = ppo.ppo_loss(cfg, model, batch, returns, adv_n, idx)
+        return dict(zip(names, torch.autograd.grad(loss, params)))
+    g_kernel = grad()
+    with plain_kernels():
+        g_plain = grad()
+    flat_k, flat_p = (torch.cat([t.flatten() for t in g.values()])
+                      for g in (g_kernel, g_plain))
+    cosine = torch.nn.functional.cosine_similarity(flat_k, flat_p,
+                                                   dim=0).item()
+    rel = ((flat_k - flat_p).norm() / flat_p.norm()).item()
+    if not cosine >= 0.999:
+        fail(f"PPO gradient through the kernels vs the plain versions: "
+             f"cosine {cosine}")
+    # each leaf of the attention block on its own, so a fault there is not
+    # hidden by the rest of the network's larger gradients
+    attn = [k for k in names if any(f"spatial_attn.{m}" in k
+                                    for m in ATTN_MODULES)]
+    attn_norm = torch.cat([g_plain[k].flatten() for k in attn]).norm()
+    leaf_rel = {}
+    for k in attn:
+        diff = (g_kernel[k] - g_plain[k]).norm()
+        floor = attn_norm if k.endswith(ZERO_GRAD_LEAF) else g_plain[k].norm()
+        leaf_rel[k] = (diff / floor).item()
+    worst = max(leaf_rel, key=leaf_rel.get)
+    if not leaf_rel[worst] <= LEAF_REL:
+        fail(f"PPO gradient of {worst} through the kernels vs the plain "
+             f"versions: relative error {leaf_rel[worst]} > {LEAF_REL}")
+    return cosine, rel, {"name": worst, "rel_err": leaf_rel[worst]}
+
+
 def phase_train(cfg, gst, device) -> dict:
     t0 = time.perf_counter()
     p = cfg.ppo
@@ -632,38 +721,7 @@ def phase_train(cfg, gst, device) -> dict:
     ts, batch = ppo.rollout(cfg, ts, gst)
     torch.cuda.synchronize()
     rollout_s = time.perf_counter() - t_ro
-    returns, adv_n = ppo.advantages(cfg, batch)
-    idx = torch.arange(p.num_processes // p.num_mini_batch, device=device)
-    names, params = zip(*ts.model.named_parameters())
-
-    def grad():
-        loss, _ = ppo.ppo_loss(cfg, ts.model, batch, returns, adv_n, idx)
-        return dict(zip(names, torch.autograd.grad(loss, params)))
-    g_kernel = grad()
-    with plain_kernels():
-        g_plain = grad()
-    flat_k, flat_p = (torch.cat([t.flatten() for t in g.values()])
-                      for g in (g_kernel, g_plain))
-    cosine = torch.nn.functional.cosine_similarity(flat_k, flat_p,
-                                                   dim=0).item()
-    rel = ((flat_k - flat_p).norm() / flat_p.norm()).item()
-    if not cosine >= 0.999:
-        fail(f"PPO gradient through the kernels vs the plain versions: "
-             f"cosine {cosine}")
-    # each leaf of the attention block on its own, so a fault there is not
-    # hidden by the rest of the network's larger gradients
-    attn = [k for k in names if any(f"spatial_attn.{m}" in k
-                                    for m in ATTN_MODULES)]
-    attn_norm = torch.cat([g_plain[k].flatten() for k in attn]).norm()
-    leaf_rel = {}
-    for k in attn:
-        diff = (g_kernel[k] - g_plain[k]).norm()
-        floor = attn_norm if k.endswith(ZERO_GRAD_LEAF) else g_plain[k].norm()
-        leaf_rel[k] = (diff / floor).item()
-    worst_leaf = max(leaf_rel, key=leaf_rel.get)
-    if not leaf_rel[worst_leaf] <= LEAF_REL:
-        fail(f"PPO gradient of {worst_leaf} through the kernels vs the plain "
-             f"versions: relative error {leaf_rel[worst_leaf]} > {LEAF_REL}")
+    cosine, rel, worst_leaf = grad_check(cfg, ts.model, batch, device)
 
     torch.cuda.synchronize()
     t_up = time.perf_counter()
@@ -692,9 +750,163 @@ def phase_train(cfg, gst, device) -> dict:
          iteration_seconds=iter_s, metrics=metrics, launches=launches,
          rollout_seconds=rollout_s, rollout_env_steps_per_s=steps / rollout_s,
          update_seconds=update_s, grad_cosine_kernel_vs_plain=cosine,
-         grad_rel_err_kernel_vs_plain=rel,
-         grad_worst_attn_leaf={"name": worst_leaf,
-                               "rel_err": leaf_rel[worst_leaf]})
+         grad_rel_err_kernel_vs_plain=rel, grad_worst_attn_leaf=worst_leaf)
+    return launches
+
+
+def _suite_metrics(res, name) -> dict:
+    """The evaluation's metrics, checked: outcomes exclusive and covering
+    every case (the three rates sum to 1), every metric finite (the
+    positions that the path length sums)."""
+    metrics = {k: res[k] for k in ("success_rate", "collision_rate",
+                                   "timeout_rate", "nav_time", "path_length",
+                                   "intrusion_ratio", "min_intrusion_dist",
+                                   "mean_episode_reward")}
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"{name}: non-finite metric: {metrics}")
+    total = (res["success_rate"] + res["collision_rate"]
+             + res["timeout_rate"])
+    if abs(total - 1.0) > 1e-9:
+        fail(f"{name}: the outcome rates sum to {total}, not 1")
+    return metrics
+
+
+def run_suites(suites, device, policy_of) -> tuple:
+    """Each (name, cfg, robot policy) as one 32-case batch of SUITE_STEPS
+    steps, the launch counts zeroed just before and read just after each:
+    ({name: result}, launches summed over the suites)."""
+    runs, total = {}, {}
+    for name, cfg, robot in suites:
+        policy = policy_of(cfg)
+        zero_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = evaluation.evaluate(cfg, policy, None, test_size=N_CASES,
+                                  batch_size=N_CASES, device=device,
+                                  log=lambda m: None, robot_policy=robot,
+                                  max_steps=SUITE_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = read_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        runs[name] = {
+            "env_name": cfg.env_name, "predict_method": cfg.sim.predict_method,
+            "humans": cfg.sim.human_num, "human_policy": cfg.humans.policy,
+            "robot_visible": cfg.robot.visible, "robot_policy": robot,
+            "metrics": _suite_metrics(res, name),
+            "collision_cases": res["collision_cases"],
+            "timeout_cases": res["timeout_cases"],
+            "env_steps": res["env_steps"], "seconds": secs,
+            "env_steps_per_s": res["env_steps"] / secs, "launches": launches}
+    return runs, total
+
+
+def phase_scripted(device) -> dict:
+    """The scripted baselines (no kernel): the ORCA and the social-force
+    robot in CrowdSimVarNum with 20 ORCA humans, and the ORCA robot among
+    20 social-force humans, 32 cases each."""
+    t0 = time.perf_counter()
+    varnum = varnum_config(human_num=20)
+    sf_humans = varnum.replace(humans=dataclasses.replace(
+        varnum.humans, policy="social_force"))
+    runs, launches = run_suites(
+        (("orca_robot", varnum, "orca"),
+         ("social_force_robot", varnum, "social_force"),
+         ("orca_robot_social_force_humans", sf_humans, "orca")),
+        device, lambda cfg: None)
+    emit("scripted", t0, cases=N_CASES, max_steps=SUITE_STEPS, runs=runs,
+         launches=launches)
+    if any(launches.values()):
+        fail(f"scripted: a kernel launched on a path that has none: "
+             f"{launches}")
+    if not any(run["metrics"]["success_rate"] > 0 for run in runs.values()):
+        fail(f"scripted: no case reached its goal in {SUITE_STEPS} steps")
+    return launches
+
+
+def phase_variants_eval(device) -> dict:
+    """The network policy, from a seeded init_params (untrained: rates are
+    printed, not gated), under BASELINE config 1 (CrowdSimVarNum, 5
+    humans), config 2 (CrowdSimPred const_vel and truth, 10 humans) and the
+    truth env with a robot the humans see, 32 cases each; K1 must launch in
+    each (rows 32 x A = 5 / 10)."""
+    t0 = time.perf_counter()
+    truth = pred_config("truth", human_num=10)
+    runs, launches = run_suites(
+        (("config1_varnum", varnum_config(human_num=5), "network"),
+         ("config2_const_vel", pred_config("const_vel", human_num=10),
+          "network"),
+         ("config2_truth", truth, "network"),
+         ("config2_truth_robot_visible", truth.replace(
+             robot=dataclasses.replace(truth.robot, visible=True)),
+          "network")),
+        device, lambda cfg: pmod.init_params(
+            cfg, torch.Generator().manual_seed(cfg.ppo.seed), device))
+    emit("variants_eval", t0, cases=N_CASES, max_steps=SUITE_STEPS, runs=runs,
+         launches=launches)
+    for name, run in runs.items():
+        got = run["launches"]
+        if not (got["K1_fused_graph_attention"] > 0
+                and got["K2_fused_graph_attention_backward"] == 0
+                and got["K3_packed_masked_attention"] == 0):
+            fail(f"variants_eval {name}: launches {got}")
+    return launches
+
+
+def phase_variants_train(device) -> dict:
+    """One PPO iteration of BASELINE config 5 through the train CLI's
+    config (CrowdSimPredRealGST, 10-50 humans, so A = 50; 64 envs x 30
+    steps, 5 epochs x 2 minibatches, GST bf16 with the committed export)
+    from a seeded init_params: K1 at rows 64 x 50 (31 launches) and 960 x 50
+    (10), K2 at 960 x 50 (10), the launch counts zeroed just before and
+    read just after; then the PPO gradient of a further rollout's first
+    minibatch through the kernels against the plain versions, to the train
+    phase's bounds."""
+    t0 = time.perf_counter()
+    cfg = build_config(train_cli._parser().parse_args(
+        ["--env-name", "CrowdSimPredRealGST", "--human-num", "30",
+         "--human-num-range", "20", "--num-processes", "64",
+         "--use-linear-lr-decay"]))
+    p = cfg.ppo
+    gst = load_gst(cfg.pred, DEFAULT_GST_PARAMS, device)
+    ts = ppo.init_train_state(cfg, gst, device)
+    a = ts.obs["spatial_edges"].shape[1]
+    if a != 50:
+        fail(f"variants_train: A = {a}, expected 50")
+    zero_counts()
+    torch.cuda.synchronize()
+    t_it = time.perf_counter()
+    ts, m = ppo.train_iteration(cfg, ts, gst)
+    torch.cuda.synchronize()
+    iter_s = time.perf_counter() - t_it
+    launches = read_counts()
+    n_updates = p.ppo_epoch * p.num_mini_batch
+    expect = {"K1_fused_graph_attention": p.num_steps + 1 + n_updates,
+              "K2_fused_graph_attention_backward": n_updates,
+              "K3_packed_masked_attention": 0}
+    metrics = {k: float(m[k]) for k in ("value_loss", "action_loss",
+                                        "dist_entropy", "reward_mean")}
+    humans = ts.env_states.human_num
+    t_ro = time.perf_counter()
+    ts, batch = ppo.rollout(cfg, ts, gst)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t_ro
+    cosine, rel, worst = grad_check(cfg, ts.model, batch, device)
+    emit("variants_train", t0, config="gst_config(human_num=30, "
+         "human_num_range=20)", A=a, envs=p.num_processes, steps=p.num_steps,
+         iteration_seconds=iter_s,
+         iteration_env_steps_per_s=p.num_steps * p.num_processes / iter_s,
+         rollout_seconds=rollout_s,
+         rollout_env_steps_per_s=p.num_steps * p.num_processes / rollout_s,
+         humans_min_max=[int(humans.min()), int(humans.max())],
+         metrics=metrics, launches=launches,
+         grad_cosine_kernel_vs_plain=cosine, grad_rel_err_kernel_vs_plain=rel,
+         grad_worst_attn_leaf=worst)
+    if launches != expect:
+        fail(f"variants_train launches {launches}, expected {expect}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"variants_train: non-finite metric {metrics}")
     return launches
 
 
@@ -746,17 +958,27 @@ def main() -> int:
     emit("build", t0, kernels=names, ptxas=ptxas)
 
     t0 = time.perf_counter()
-    # the paths' shapes: evaluation (32 cases), rollout act/get_value (64
-    # envs) and the update's minibatch (30 steps x 32 envs)
+    # the paths' shapes: evaluation (32 cases; A = 5 and 10 in
+    # variants_eval), rollout act/get_value (64 envs) and the update's
+    # minibatch (30 steps x 32 envs)
     k1 = {rows: check_k1(rows, device) for rows in K1_ROWS}
     k1_wide = check_k1(960, device, A_WIDE)
+    k1_wide64 = check_k1(64, device, A_WIDE)      # config 5's rollout
     k1_past = check_k1(960, device, A_PAST)
+    k1_variants = {a: check_k1(N_CASES, device, a) for a in A_VARIANTS}
     k1_edges = check_k1_edges(device)
     k2 = check_k2(960, device)
     k2_wide = check_k2(960, device, A_WIDE)
     k2_past = check_k2(960, device, A_PAST)
     k3 = [check_k3(rows, a, heads, dt, device, stream=(i == 0))
           for i, (rows, a, heads, dt) in enumerate(K3_CASES)]
+    # what the kernels take since their shape limits went
+    k1_any = [check_k1(rows, device, a, d, heads, reps=REPS_ANY[rows, a])
+              for rows, a, d, heads in ANY_K12]
+    k2_any = [check_k2(rows, device, a, d, heads, reps=REPS_ANY[rows, a])
+              for rows, a, d, heads in ANY_K12]
+    k3_any = [check_k3(rows, a, heads, torch.float32, device, d=d)
+              for rows, a, d, heads in ANY_K3]
     # the device kernels behind one wrapper call, at the entries' shapes
     k1_args = k1_inputs(N_CASES, seed=0, device=device)
     k2_args = k1_inputs(960, seed=0, device=device)[:5] + [
@@ -777,8 +999,10 @@ def main() -> int:
             "bf16": device_kernels(
                 lambda: packed_masked_attention(q16, k16, v16, mask, HEADS))},
     }
-    emit("kernels", t0, k1=k1, k1_a50=k1_wide, k1_a80=k1_past,
+    emit("kernels", t0, k1=k1, k1_a50=k1_wide, k1_rows64_a50=k1_wide64,
+         k1_a80=k1_past, k1_variants=k1_variants,
          k1_edges=k1_edges, k2=k2, k2_a50=k2_wide, k2_a80=k2_past, k3=k3,
+         k1_any_shape=k1_any, k2_any_shape=k2_any, k3_any_shape=k3_any,
          device_kernels=dev_kernels)
 
     cfg = config_from_snapshot(os.path.join(MODEL_DIR, "config.json"))
@@ -787,7 +1011,10 @@ def main() -> int:
     train_launches = phase_train(cfg, gst, device)
     edges_launches, edges_sweep = phase_edges(device)
     path_launches = {"evaluate": eval_launches, "train": train_launches,
-                     "edges": edges_launches}
+                     "edges": edges_launches,
+                     "scripted": phase_scripted(device),
+                     "variants_eval": phase_variants_eval(device),
+                     "variants_train": phase_variants_train(device)}
 
     def per_call(name):
         return {"device_launches_per_call": {
@@ -795,8 +1022,8 @@ def main() -> int:
                     for tag, names in dev_kernels[name].items()},
                 "device_kernels": dev_kernels[name]}
 
-    def entry(name, source, replaces, m, shape, paths):
-        by_path = {p: path_launches[p][name] for p in paths}
+    def entry(name, source, replaces, m, shape):
+        by_path = {p: path_launches[p][name] for p in path_launches}
         return {
             "name": name, "route": "cuda",
             "source": f"crowdnav_prediction_attngraph_tpu_torch/ops/csrc/"
@@ -815,23 +1042,27 @@ def main() -> int:
             "ptxas": ptxas.get(source[:-3], {}),
         }
     k1_entry = entry("K1_fused_graph_attention", "fused_graph_attention.cu",
-                     175, k1[N_CASES], {"rows": N_CASES},
-                     ("evaluate", "train", "edges"))
+                     175, k1[N_CASES], {"rows": N_CASES})
     for rows in K1_ROWS[1:]:
         k1_entry[f"rows{rows}"] = k1[rows]
     k1_entry[f"rows960_a{A_WIDE}"] = k1_wide
+    k1_entry[f"rows64_a{A_WIDE}"] = k1_wide64
     k1_entry[f"rows960_a{A_PAST}"] = k1_past
+    for a, m in k1_variants.items():
+        k1_entry[f"rows{N_CASES}_a{a}"] = m
     k1_entry["edges_max_abs_err_bf16"] = {r: e["max_abs_err"]
                                           for r, e in k1_edges.items()}
     k1_entry["edges_sweep_rows"] = k1_edges
     k1_entry["edges_fused_sweep_ms"] = edges_sweep
+    k1_entry["any_shape"] = k1_any
     k2_entry = entry("K2_fused_graph_attention_backward",
-                     "fused_graph_attention_bwd.cu", 298, k2, {"rows": 960},
-                     ("evaluate", "train"))
+                     "fused_graph_attention_bwd.cu", 298, k2, {"rows": 960})
     k2_entry["max_abs_err_by_grad_bf16"] = k2["max_abs_err_by_grad_bf16"]
     k2_entry[f"rows960_a{A_WIDE}"] = k2_wide
     k2_entry[f"rows960_a{A_PAST}"] = k2_past
-    k3_by_path = {"edges": edges_launches["K3_packed_masked_attention"]}
+    k2_entry["any_shape"] = k2_any
+    k3_by_path = {p: path_launches[p]["K3_packed_masked_attention"]
+                  for p in path_launches}
     k3_entry = {
         "name": "K3_packed_masked_attention", "route": "cuda",
         "source": "crowdnav_prediction_attngraph_tpu_torch/ops/csrc/"
@@ -850,7 +1081,7 @@ def main() -> int:
         "max_abs_err_by_shape": {
             f"rows{r['rows']}_a{r['A']}_h{r['heads']}_{r['dtype']}":
             r["max_abs_err"] for r in k3},
-        "by_shape": k3[1:],
+        "by_shape": k3[1:], "any_shape": k3_any,
         **per_call("K3_packed_masked_attention"),
         "ptxas": ptxas.get(masked_attention.KERNEL_ATTN, {}),
     }

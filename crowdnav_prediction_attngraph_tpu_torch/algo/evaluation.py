@@ -43,12 +43,18 @@ def case_generator(base_seed: int, case_idx: int,
 def evaluate(cfg: Config, policy, gst_model,
              test_size: Optional[int] = None, base_seed: Optional[int] = None,
              batch_size: Optional[int] = None, phase: str = "test",
-             device="cuda", log=print) -> Dict:
-    """Run the seeded suite with a deterministic policy in batches of
-    ``batch_size`` (default: all cases at once) on ``device``, where the
-    policy and the GST model must lie. Returns the metrics dict, plus
-    ``env_steps`` (env steps simulated, frozen slots included) and
-    ``seconds``."""
+             device="cuda", log=print, robot_policy: str = "network",
+             max_steps: Optional[int] = None) -> Dict:
+    """Run the seeded suite in batches of ``batch_size`` (default: all cases
+    at once) on ``device``, where the policy and the GST model must lie.
+    ``robot_policy`` "network" drives the robot with ``policy``
+    (deterministic); "orca" and "social_force" run the scripted baselines
+    (``policy`` unused, zero actions, JAX ``evaluation.py:103-110``). The
+    GST model is used only by the ``inferred`` env (None otherwise).
+    ``max_steps`` cuts every batch after that many steps (default: the
+    episode limit, time_limit / time_step + 1); a case still running then
+    counts as a timeout. Returns the metrics dict, plus ``env_steps`` (env
+    steps simulated, frozen slots included) and ``seconds``."""
     device = resolve_device(device)
     test_size = test_size or (cfg.env.val_size if phase == "val"
                               else cfg.env.test_size)
@@ -60,7 +66,7 @@ def evaluate(cfg: Config, policy, gst_model,
     for start in range(0, test_size, bs):
         idx = list(range(start, min(start + bs, test_size)))
         acc, n = _evaluate_chunk(cfg, policy, gst_model, base_seed, idx,
-                                 phase, device)
+                                 phase, device, robot_policy, max_steps)
         chunks.append(acc)
         env_steps += n
         log(f"[evaluate] cases {idx[0]}..{idx[-1]} done")
@@ -91,13 +97,16 @@ def evaluate(cfg: Config, policy, gst_model,
 
 
 def _evaluate_chunk(cfg: Config, policy, gst_model, base_seed: int, idx,
-                    phase: str, device):
+                    phase: str, device, robot_policy: str, max_steps=None):
     B = len(idx)
-    max_steps = cfg.max_episode_steps + 1
+    max_steps = max_steps or cfg.max_episode_steps + 1
+    gst = cfg.sim.predict_method == "inferred"     # (:95-98, :116-119)
     gens = [case_generator(base_seed, i, phase) for i in idx]
     states, obs = crowd_sim.reset(cfg, gens, device)
     zeros = torch.zeros(B, device=device)
-    states, obs, _, _ = pretext_process(cfg, gst_model, states, obs, zeros)
+    if gst:
+        states, obs, _, _ = pretext_process(cfg, gst_model, states, obs,
+                                            zeros)
     obs_d = obs_to_dict(obs)
     hxs = init_hidden(cfg, B, device)
     masks = torch.ones(B, device=device)
@@ -112,12 +121,16 @@ def _evaluate_chunk(cfg: Config, policy, gst_model, base_seed: int, idx,
     for _ in range(max_steps):
         if not bool(alive.any()):
             break
-        _, action, _, hxs_new = policy_mod.act(policy, obs_d, hxs, masks,
-                                               deterministic=True)
+        if robot_policy == "network":
+            _, action, _, hxs_new = policy_mod.act(policy, obs_d, hxs, masks,
+                                                   deterministic=True)
+        else:
+            action, hxs_new = torch.zeros(B, 2, device=device), hxs
         states_new, obs_new, rew, done, info = crowd_sim.step(
-            cfg, states, action, "test")
-        states_new, obs_new, rew, _ = pretext_process(
-            cfg, gst_model, states_new, obs_new, rew)
+            cfg, states, action, "test", robot_policy)
+        if gst:
+            states_new, obs_new, rew, _ = pretext_process(
+                cfg, gst_model, states_new, obs_new, rew)
         n_steps += 1
 
         # freeze finished episodes

@@ -2,8 +2,9 @@
 and train.py:144-242).
 
 One iteration is a T-step rollout of the vectorized env (policy ``act`` with
-sampled actions -> ``vec_step`` with auto-reset and the GST pretext pass),
-the bootstrap value, GAE, then ``ppo_epoch`` x ``num_mini_batch`` Adam steps
+sampled actions -> ``vec_step`` with auto-reset and, in the GST env, the
+GST pretext pass), the bootstrap value, GAE, then ``ppo_epoch`` x
+``num_mini_batch`` Adam steps
 on the clipped surrogate, the clipped value loss and the entropy bonus, with
 the gradients clipped by their global norm as optax clips them. Where the
 JAX package runs the iteration as one jitted program, the port runs it

@@ -4,8 +4,10 @@ A copy of ``crowdnav_prediction_attngraph_tpu/config.py`` (the frozen
 dataclasses and the ``varnum_config`` / ``pred_config`` / ``gst_config``
 builders) that imports nothing of the JAX package: importing that module runs
 the JAX package's ``__init__``, which imports jax. Field defaults and derived
-quantities are identical; ``config_from_snapshot`` is the JAX package's
-``test.py:41-60`` loader for a run's ``config.json``.
+quantities are identical; ``build_config`` is the JAX package's
+``train.py:43-85`` CLI builder, shared by the port's ``train`` and ``test``,
+and ``config_from_snapshot`` its ``test.py:41-60`` loader for a run's
+``config.json``.
 
 Reference field provenance is cited inline as ``file:line`` into the upstream
 CrowdNav++ sources.
@@ -361,6 +363,53 @@ def gst_config(human_num: int = 20, human_num_range: int = 0, **kw) -> Config:
                       predict_method="inferred"),
         **kw,
     )
+
+
+def build_config(args) -> Config:
+    """A run's config from the CLI flags of ``train`` and ``test`` (JAX
+    ``train.py:43-85``, which the JAX ``test.py:116`` calls too): the env
+    from ``env_name`` with ``human_num``, ``human_num_range`` and, for
+    CrowdSimPred, ``predict_method``; the PPO fields from the flags, with
+    the config's own values for flags a CLI does not have (test has no
+    minibatch, epoch, entropy or lr-decay flags); and the optional overrides
+    ``randomize_attributes``, ``kinematics``, ``robot_v_pref``,
+    ``spin_warmup_steps`` and ``gst_matmul_dtype``."""
+    if args.env_name == "CrowdSimVarNum":
+        cfg = varnum_config(human_num=args.human_num,
+                            human_num_range=args.human_num_range)
+    elif args.env_name == "CrowdSimPred":
+        cfg = pred_config(predict_method=args.predict_method,
+                          human_num=args.human_num,
+                          human_num_range=args.human_num_range)
+    elif args.env_name == "CrowdSimPredRealGST":
+        cfg = gst_config(human_num=args.human_num,
+                         human_num_range=args.human_num_range)
+    else:
+        raise ValueError(args.env_name)
+    cfg = cfg.replace(ppo=dataclasses.replace(
+        cfg.ppo, num_processes=args.num_processes, num_steps=args.num_steps,
+        num_env_steps=args.num_env_steps, lr=args.lr, seed=args.seed,
+        num_mini_batch=getattr(args, "num_mini_batch", cfg.ppo.num_mini_batch),
+        ppo_epoch=getattr(args, "ppo_epoch", cfg.ppo.ppo_epoch),
+        entropy_coef=getattr(args, "entropy_coef", cfg.ppo.entropy_coef),
+        use_linear_lr_decay=getattr(args, "use_linear_lr_decay",
+                                    cfg.ppo.use_linear_lr_decay)))
+    if not getattr(args, "randomize_attributes", True):
+        cfg = cfg.replace(env=dataclasses.replace(
+            cfg.env, randomize_attributes=False))
+    if getattr(args, "kinematics", None):
+        cfg = cfg.replace(action_space=dataclasses.replace(
+            cfg.action_space, kinematics=args.kinematics))
+    if getattr(args, "robot_v_pref", None):
+        cfg = cfg.replace(robot=dataclasses.replace(
+            cfg.robot, v_pref=args.robot_v_pref))
+    if getattr(args, "spin_warmup_steps", 0):
+        cfg = cfg.replace(reward=dataclasses.replace(
+            cfg.reward, spin_penalty_warmup_steps=args.spin_warmup_steps))
+    if getattr(args, "gst_matmul_dtype", None):
+        cfg = cfg.replace(pred=dataclasses.replace(
+            cfg.pred, matmul_dtype=args.gst_matmul_dtype))
+    return cfg
 
 
 def config_from_snapshot(path: str) -> Config:

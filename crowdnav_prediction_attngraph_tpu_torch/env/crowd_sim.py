@@ -1,35 +1,38 @@
 """The crowd-navigation simulator, natively batched over envs.
 
-Port of the JAX package's ``env/crowd_sim.py`` for what the GST env needs
-in the train and the test phase: robot and human visibility (:65-118),
-``build_human_neighbor_inputs``, ``get_human_actions`` with ORCA humans, the
-ground-truth future rollout used for intrusion accounting in the test phase
-(``calc_human_future_traj`` "truth", :201-276), ``generate_ob`` for the
-``inferred`` prediction method, ``calc_reward``, respawn, random and end goal
-changes, ``reset`` and ``step``. Where the JAX package vmaps one-env
-functions, these functions take a leading env axis B; every ORCA call solves
-all (env x human) egos at once.
+Port of the JAX package's ``env/crowd_sim.py``, one parametric env family
+selected by ``sim.predict_method`` as there: ``none`` (CrowdSimVarNum),
+``const_vel`` and ``truth`` (CrowdSimPred) and ``inferred``
+(CrowdSimPredRealGST, whose GST predictions ``env/pretext.py`` writes in).
+It covers robot and human visibility (:65-113), the humans' neighbour
+inputs with the robot's column when it is visible (:120-151), ORCA and
+social-force humans (:163-194), the const-vel and ground-truth futures
+(:201-271), ``generate_ob`` (:283-346), ``calc_reward`` with the social
+term of the CrowdSimPred envs (:353-429), respawn, goal changes and the
+varying human count (:436-546), ``reset`` (:553-611), the scripted ORCA and
+social-force robots (:614-656) and ``step`` (:659-745). Where the JAX
+package vmaps one-env functions, these take a leading env axis B; every ORCA
+and social-force call solves all (env x agent) egos at once.
 
-Not ported yet (they raise): social-force humans, the unicycle robot, a
-robot visible to the humans, a varying human count (``human_num_range >
-0``), the ``none``/``const_vel``/``truth`` observation methods and scripted
-robot policies.
+Not ported yet (it raises): the unicycle robot.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import Config
 from . import kinematics, spawn
 from .orca import orca_velocity_batch
+from .social_force import social_force_velocity
 from .types import (EnvState, HumanState, Observation, RobotState, StepInfo,
                     OUTCOME_COLLISION, OUTCOME_DANGER, OUTCOME_NOTHING,
-                    OUTCOME_REACH_GOAL, OUTCOME_TIMEOUT)
+                    OUTCOME_REACH_GOAL, OUTCOME_TIMEOUT, tree_where)
 
 # Belief placeholder for out-of-view humans (crowd_sim.py:258).
 BELIEF_DUMMY = (15.0, 15.0, 0.0, 0.0, 0.3)
@@ -40,19 +43,42 @@ HIDDEN_FUTURE = (15.0, 15.0, 0.0, 0.0)
 
 def check_supported(cfg: Config):
     """Raise for the configurations this port does not cover yet."""
-    missing = []
-    if cfg.humans.policy != "orca":
-        missing.append(f"humans.policy={cfg.humans.policy!r}")
     if cfg.action_space.kinematics != "holonomic":
-        missing.append(f"kinematics={cfg.action_space.kinematics!r}")
-    if cfg.sim.human_num_range != 0:
-        missing.append("human_num_range > 0")
-    if cfg.sim.predict_method != "inferred":
-        missing.append(f"predict_method={cfg.sim.predict_method!r}")
-    if cfg.robot.visible:
-        missing.append("robot.visible=True")
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
+        raise NotImplementedError(
+            f"not ported yet: kinematics={cfg.action_space.kinematics!r}")
+
+
+def stale_neighbor_radii(A: int) -> torch.Tensor:
+    """(A,) the fixed U(0.3, 0.5) neighbour radii of the
+    ``orca.stale_neighbor_radii`` emulation: the JAX package's
+    ``jax.random.uniform(jax.random.key(0), (A,), minval=0.3, maxval=0.5)``
+    (``crowd_sim.py:633-634``), bit for bit: threefry-2x32 (20 rounds) of
+    key (0, 0) on the counters (0, i), its two words xor-ed (JAX's
+    partitionable bit layout), mapped to [1, 2) by the top 23 bits."""
+    m = np.uint32
+
+    def rotl(v, r):
+        return (v << m(r)) | (v >> m(32 - r))
+
+    ks = (m(0), m(0), m(0x1BD11BDA))               # key words and parity
+    x0 = np.zeros(A, np.uint32) + ks[0]
+    x1 = np.arange(A, dtype=np.uint32) + ks[1]
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+    with np.errstate(over="ignore"):
+        for i in range(5):
+            for r in rotations[i % 2]:
+                x0 = x0 + x1
+                x1 = rotl(x1, r) ^ x0
+            x0 = x0 + ks[(i + 1) % 3]
+            x1 = x1 + ks[(i + 2) % 3] + m(i + 1)
+    unit = (((x0 ^ x1) >> m(9)) | m(0x3F800000)).view(np.float32) - \
+        np.float32(1.0)
+    lo, hi = np.float32(0.3), np.float32(0.5)
+    # unit * (hi - lo) + lo rounded once, as XLA's fused multiply-add does
+    # (the f32 product is exact in f64)
+    fma = (unit.astype(np.float64) * np.float64(hi - lo)
+           + np.float64(lo)).astype(np.float32)
+    return torch.from_numpy(np.maximum(lo, fma))
 
 
 def _active_mask(cfg: Config, human_num) -> torch.Tensor:
@@ -83,6 +109,15 @@ def robot_human_visibility(cfg: Config, state: EnvState) -> torch.Tensor:
             - state.humans.radius - state.robot.radius[:, None])
     in_range = dist <= cfg.robot.sensor_range
     return _active_mask(cfg, state.human_num) & in_fov & in_range
+
+
+def human_sees_robot(cfg: Config, state: EnvState) -> torch.Tensor:
+    """(B, A): does each active human see the robot (crowd_sim.py:92-100)."""
+    heading = _heading(state.humans.vel)
+    offset = _offset_angle(state.humans.pos, heading,
+                           state.robot.pos[:, None].expand_as(state.humans.pos))
+    in_fov = offset.abs() <= (math.pi * cfg.humans.fov) / 2.0
+    return in_fov & _active_mask(cfg, state.human_num)
 
 
 def human_pair_visibility(cfg: Config, state: EnvState) -> torch.Tensor:
@@ -127,10 +162,12 @@ def _pref_velocity(goal, pos):
 
 
 def build_human_neighbor_inputs(cfg: Config, state: EnvState):
-    """Neighbour tensors for the human policies (crowd_sim.py:680-703): each
+    """Neighbour tensors for the human policies (crowd_sim.py:120-151): each
     human acts on the true states of the peers it sees (unseen peers become
-    a dummy at (7, 7)); the robot is invisible to them. Returns
-    (nbr_pos (B, A, A, 2), nbr_vel, nbr_radius (B, A, A), nbr_mask, active)."""
+    a dummy at (7, 7)), plus the robot as a last column when
+    ``robot.visible`` (the dummy when out of the human's view). Returns
+    (nbr_pos (B, A, N, 2), nbr_vel, nbr_radius (B, A, N), nbr_mask, active),
+    N = A, or A + 1 with the robot."""
     A = cfg.sim.max_human_num
     vis = human_pair_visibility(cfg, state)
     eye = torch.eye(A, dtype=torch.bool, device=vis.device)
@@ -145,6 +182,19 @@ def build_human_neighbor_inputs(cfg: Config, state: EnvState):
                              torch.full_like(vis, cfg.humans.radius,
                                              dtype=pos.dtype))
     nbr_mask = active[:, None, :] & ~eye
+    if cfg.robot.visible:
+        sees = human_sees_robot(cfg, state)[..., None]          # (B, A, 1)
+        r = state.robot
+        r_pos = torch.where(sees, r.pos[:, None],
+                            torch.full_like(pos, NEIGHBOR_DUMMY_POS))
+        r_vel = torch.where(sees, r.vel[:, None], torch.zeros_like(vel))
+        r_rad = torch.where(sees[..., 0], r.radius[:, None],
+                            torch.full_like(state.humans.radius,
+                                            cfg.robot.radius))
+        nbr_pos = torch.cat([nbr_pos, r_pos[:, :, None]], dim=2)
+        nbr_vel = torch.cat([nbr_vel, r_vel[:, :, None]], dim=2)
+        nbr_radius = torch.cat([nbr_radius, r_rad[..., None]], dim=2)
+        nbr_mask = torch.cat([nbr_mask, torch.ones_like(sees)], dim=2)
     return nbr_pos, nbr_vel, nbr_radius, nbr_mask, active
 
 
@@ -167,34 +217,72 @@ def _orca_humans(cfg: Config, state: EnvState, pos, vel, nbr_pos, nbr_vel,
 
 
 def get_human_actions(cfg: Config, state: EnvState) -> torch.Tensor:
-    """New velocities (B, A, 2) for all humans (crowd_sim.py:159-199)."""
+    """New velocities (B, A, 2) for all humans (crowd_sim.py:163-194): ORCA
+    or social force on the neighbours of build_human_neighbor_inputs."""
     nbr_pos, nbr_vel, nbr_radius, nbr_mask, active = \
         build_human_neighbor_inputs(cfg, state)
-    act = _orca_humans(cfg, state, state.humans.pos, state.humans.vel,
-                       nbr_pos, nbr_vel, nbr_radius, nbr_mask)
+    h = state.humans
+    if cfg.humans.policy == "orca":
+        act = _orca_humans(cfg, state, h.pos, h.vel, nbr_pos, nbr_vel,
+                           nbr_radius, nbr_mask)
+    elif cfg.humans.policy == "social_force":
+        B, A, N = nbr_mask.shape
+        act = social_force_velocity(
+            h.pos.reshape(B * A, 2), h.vel.reshape(B * A, 2),
+            h.radius.reshape(B * A), h.goal.reshape(B * A, 2),
+            h.v_pref.reshape(B * A), nbr_pos.reshape(B * A, N, 2),
+            nbr_radius.reshape(B * A, N), nbr_mask.reshape(B * A, N),
+            cfg.sf.A, cfg.sf.B, cfg.sf.KI, cfg.env.time_step).reshape(B, A, 2)
+    else:
+        raise ValueError(f"unknown human policy {cfg.humans.policy}")
     return torch.where(active[..., None], act, torch.zeros_like(act))
 
 
-def calc_human_future_traj(cfg: Config, state: EnvState,
-                           visibility) -> torch.Tensor:
-    """Ground-truth future (B, K+1, A, 4) of (px, py, vx, vy) from an ORCA
-    rollout of all active peers, no FOV filter (crowd_sim.py:201-276,
-    method "truth"). Hidden humans are pinned to (15, 15, 0, 0)."""
-    A = cfg.sim.max_human_num
+def calc_human_future_traj(cfg: Config, state: EnvState, visibility,
+                           method: str = "truth") -> torch.Tensor:
+    """Future (B, K+1, A, 4) of (px, py, vx, vy) (crowd_sim.py:201-271):
+    ``const_vel`` moves each human on from its true position with the
+    velocity of its previous belief; ``truth`` rolls ORCA out over all
+    active peers, no FOV filter, plus the robot moving on linearly when it
+    is visible. Hidden humans are pinned to (15, 15, 0, 0)."""
+    A, K = cfg.sim.max_human_num, cfg.sim.predict_steps
     B = state.human_num.shape[0]
     active = _active_mask(cfg, state.human_num)
-    eye = torch.eye(A, dtype=torch.bool, device=active.device)
     pos, vel = state.humans.pos, state.humans.vel
-    nbr_mask = (active[:, None, :] & ~eye).expand(B, A, A)
-    nbr_rad = state.humans.radius[:, None, :].expand(B, A, A)
-    frames = [torch.cat([pos, vel], dim=-1)]
-    for _ in range(cfg.buffer_len):
-        vel = _orca_humans(cfg, state, pos, vel,
-                           pos[:, None].expand(B, A, A, 2),
-                           vel[:, None].expand(B, A, A, 2), nbr_rad, nbr_mask)
-        pos = pos + vel * cfg.env.time_step
-        frames.append(torch.cat([pos, vel], dim=-1))
-    traj = torch.stack(frames, dim=1)[:, ::cfg.pred_interval]
+    if method == "const_vel":
+        vel0 = state.prev_human_states[..., 2:4]
+        t = (torch.arange(K + 1, device=pos.device, dtype=pos.dtype)
+             * cfg.env.time_step * cfg.pred_interval)
+        future = pos[:, None] + t[None, :, None, None] * vel0[:, None]
+        traj = torch.cat([future, vel0[:, None].expand(B, K + 1, A, 2)], -1)
+    elif method == "truth":
+        eye = torch.eye(A, dtype=torch.bool, device=active.device)
+        nbr_mask = (active[:, None, :] & ~eye).expand(B, A, A)
+        nbr_rad = state.humans.radius[:, None, :].expand(B, A, A)
+        r = state.robot
+        if cfg.robot.visible:
+            nbr_mask = torch.cat([nbr_mask, torch.ones_like(nbr_mask[..., :1])],
+                                 dim=2)
+            nbr_rad = torch.cat([nbr_rad, r.radius[:, None, None].expand(
+                B, A, 1)], dim=2)
+        r_pos = r.pos
+        frames = [torch.cat([pos, vel], dim=-1)]
+        for _ in range(cfg.buffer_len):
+            nbr_pos = pos[:, None].expand(B, A, A, 2)
+            nbr_vel = vel[:, None].expand(B, A, A, 2)
+            if cfg.robot.visible:
+                nbr_pos = torch.cat([nbr_pos, r_pos[:, None, None].expand(
+                    B, A, 1, 2)], dim=2)
+                nbr_vel = torch.cat([nbr_vel, r.vel[:, None, None].expand(
+                    B, A, 1, 2)], dim=2)
+            vel = _orca_humans(cfg, state, pos, vel, nbr_pos, nbr_vel,
+                               nbr_rad, nbr_mask)
+            pos = pos + vel * cfg.env.time_step
+            r_pos = r_pos + r.vel * cfg.env.time_step
+            frames.append(torch.cat([pos, vel], dim=-1))
+        traj = torch.stack(frames, dim=1)[:, ::cfg.pred_interval]
+    else:
+        raise ValueError(f"unknown prediction method {method}")
     hidden = ~(visibility & active)
     return torch.where(hidden[:, None, :, None],
                        torch.tensor(HIDDEN_FUTURE, device=traj.device), traj)
@@ -206,28 +294,53 @@ def calc_human_future_traj(cfg: Config, state: EnvState,
 
 def generate_ob(cfg: Config, state: EnvState, reset: bool
                 ) -> Tuple[Observation, EnvState]:
-    """The dict observation for the ``inferred`` (GST) env, with belief
-    updates folded back into the state (crowd_sim_var_num.py:233-279,
-    crowd_sim_pred_real_gst.py:76-94). spatial_edges holds the current
-    relative position tiled K+1 times; pretext_process writes the GST
-    predictions in."""
-    K = cfg.sim.predict_steps
+    """The dict observation, with belief updates folded back into the state
+    (crowd_sim.py:283-346; crowd_sim_var_num.py:233-279,
+    crowd_sim_pred.py:62-97, crowd_sim_pred_real_gst.py:76-94).
+    spatial_edges holds each seen human's relative position (``none``), its
+    relative const-vel or ground-truth future (``const_vel``, ``truth``;
+    the future is also stored in the state), the seen humans first in order
+    of current distance when ``network.sort_humans``, unseen ones at 15; or,
+    for ``inferred``, the current relative position tiled K+1 times, which
+    pretext_process overwrites with the GST predictions."""
+    A, K = cfg.sim.max_human_num, cfg.sim.predict_steps
     vis = robot_human_visibility(cfg, state)
     num_vis = vis.sum(dim=-1)
+    prev = state.last_human_states
     last = update_last_human_states(cfg, state, vis, reset=reset)
     state = dataclasses.replace(state, last_human_states=last,
-                                visible_masks=vis)
+                                prev_human_states=prev, visible_masks=vis)
     r = state.robot
     robot_node = torch.cat([r.pos, r.radius[:, None], r.goal,
                             r.v_pref[:, None], r.theta[:, None]], dim=-1)
+    method = cfg.sim.predict_method
     rel = last[..., :2] - r.pos[:, None]
-    base = torch.where(vis[..., None], rel, torch.full_like(rel, math.inf))
-    base = torch.where(torch.isinf(base), torch.full_like(base, 15.0), base)
+    if method == "inferred":
+        base = torch.where(vis[..., None], rel, torch.full_like(rel, 15.0))
+        edges, vis_out = base.repeat(1, 1, K + 1), vis
+    else:
+        if method in ("const_vel", "truth"):
+            future = calc_human_future_traj(cfg, state, vis, method)
+            state = dataclasses.replace(state, human_future_traj=future)
+            rel = (future[..., :2].transpose(1, 2)
+                   - r.pos[:, None, None]).reshape(-1, A, 2 * (K + 1))
+        elif method != "none":
+            raise ValueError(f"unknown prediction method {method}")
+        inf = torch.full_like(rel, math.inf)
+        edges = torch.where(vis[..., None], rel, inf)
+        vis_out = vis
+        if cfg.network.sort_humans:
+            key = torch.linalg.norm(edges[..., :2], dim=-1)
+            order = torch.argsort(key, dim=-1, stable=True)
+            edges = torch.gather(edges, 1, order[..., None].expand_as(edges))
+            vis_out = torch.arange(A, device=vis.device)[None] < num_vis[:, None]
+        edges = torch.where(torch.isinf(edges), torch.full_like(edges, 15.0),
+                            edges)
     obs = Observation(
         robot_node=robot_node.float(),
         temporal_edges=r.vel.float(),
-        spatial_edges=base.repeat(1, 1, K + 1).float(),
-        visible_masks=vis,
+        spatial_edges=edges.float(),
+        visible_masks=vis_out,
         detected_human_num=num_vis.clamp_min(1),
     )
     return obs, state
@@ -237,7 +350,9 @@ def calc_reward(cfg: Config, state: EnvState, future_traj, phase: str):
     """R(s, a) for the holonomic robot (crowd_sim_var_num.py:465-561). In the
     test phase the danger zone comes from the ground-truth future; in the
     train phase it is the current ``dmin < discomfort_dist`` and the
-    reported min_dist is 0 (JAX ``crowd_sim.py:372-374, 425-428``). Returns
+    reported min_dist is 0 (JAX ``crowd_sim.py:372-374, 425-428``). The
+    CrowdSimPred envs (``const_vel``, ``truth``) add the social term of the
+    predicted futures (crowd_sim_pred.py:216-233; JAX :416-423). Returns
     (reward, done, new_potential, StepInfo), each (B,)."""
     active = _active_mask(cfg, state.human_num)
     r = state.robot
@@ -289,6 +404,15 @@ def calc_reward(cfg: Config, state: EnvState, future_traj, phase: str):
     # potential only updates on the potential-reward branch (:540-543)
     took_pot = ~(timeout | collision | reaching_goal | danger_cond)
     new_potential = torch.where(took_pot, -pot_cur.abs(), state.potential)
+    if cfg.sim.predict_method in ("const_vel", "truth"):
+        K = cfg.sim.predict_steps
+        rel_dist = torch.linalg.norm(future_traj[:, 1:, :, :2]
+                                     - r.pos[:, None, None], dim=-1)
+        hit = rel_dist < r.radius[:, None, None] + cfg.humans.radius
+        coeff = 2.0 ** torch.arange(2, K + 2, device=hit.device,
+                                    dtype=rel_dist.dtype)
+        penalties = cfg.reward.collision_penalty / coeff        # negative
+        reward = reward + (hit * penalties[None, :, None]).flatten(1).amin(-1)
     info = StepInfo(outcome=outcome, min_dist=min_danger_dist)
     return reward, done, new_potential, info
 
@@ -362,6 +486,55 @@ def end_goal_updates(cfg: Config, u, state: EnvState) -> EnvState:
     return _respawn_humans(cfg, u, state, reached)
 
 
+def vary_draws(cfg: Config) -> int:
+    return 3 + respawn_draws(cfg)
+
+
+def _uniform_int(u, high):
+    """Integers uniform on [0, high] (B,) from U[0, 1) draws u (B,)."""
+    return torch.minimum((u * (high + 1)).long(), high)
+
+
+def vary_human_num(cfg: Config, u, state: EnvState, pred_rule: bool
+                   ) -> EnvState:
+    """Add or remove humans (crowd_sim.py:505-546; crowd_sim_var_num.py
+    :406-439, crowd_sim_pred.py:167-194): a coin chooses; removal takes up
+    to max_remove humans off the end of the active prefix, never a seen one
+    (``pred_rule`` selects CrowdSimPred's max_remove rule), addition
+    respawns up to ``human_num_range`` new slots past it with fresh belief
+    rows. u (B, vary_draws(cfg)): the coin, the two counts and the
+    respawn's draws, in that order."""
+    A, n = cfg.sim.max_human_num, state.human_num
+    u_coin, u_rm, u_add, u_gen = spawn.split_draws(
+        u, (1, 1, 1, respawn_draws(cfg)))
+    vis = state.visible_masks
+    idx = torch.arange(A, device=n.device)
+    any_vis = vis.any(dim=-1)
+    max_vis_id = torch.where(vis, idx, torch.full_like(idx, -1)).amax(dim=-1)
+    if pred_rule:
+        max_rm = torch.where(any_vis, (n - 1) - max_vis_id, n - 1)
+        max_rm = max_rm.clamp(max=cfg.sim.human_num_range)
+    else:
+        max_rm = torch.where(
+            any_vis, torch.minimum(n - cfg.sim.min_human_num,
+                                   (n - 1) - max_vis_id),
+            n - cfg.sim.min_human_num)
+    max_rm = max_rm.clamp_min(0)
+    remove_num = _uniform_int(u_rm[:, 0], max_rm)
+    add_num = torch.minimum(
+        _uniform_int(u_add[:, 0], torch.full_like(n, cfg.sim.human_num_range)),
+        A - n)
+    do_remove = u_coin[:, 0] < 0.5
+    new_num = torch.where(do_remove, n - remove_num, n + add_num)
+    is_new = ~do_remove[:, None] & (idx >= n[:, None]) & (idx < new_num[:, None])
+    state = _respawn_humans(cfg, u_gen, state, is_new, placed=idx < n[:, None])
+    dummy = torch.tensor(BELIEF_DUMMY, device=n.device)
+    return dataclasses.replace(
+        state, human_num=new_num,
+        last_human_states=torch.where(is_new[..., None], dummy,
+                                      state.last_human_states))
+
+
 # --------------------------------------------------------------------------
 # reset / step
 # --------------------------------------------------------------------------
@@ -369,17 +542,21 @@ def end_goal_updates(cfg: Config, u, state: EnvState) -> EnvState:
 def reset(cfg: Config, gens: List[torch.Generator], device
           ) -> Tuple[EnvState, Observation]:
     """Seeded episode generation for one env per generator
-    (crowd_sim_var_num.py:303-363)."""
+    (crowd_sim_var_num.py:303-363). With ``human_num_range > 0`` the human
+    count is drawn uniformly from [min_human_num, max_human_num] (one more
+    draw a case; none otherwise, so the fixed-count streams are unchanged)."""
     check_supported(cfg)
     A, K = cfg.sim.max_human_num, cfg.sim.predict_steps
     B = len(gens)
-    u_robot, u_nd, u_humans = spawn.split_draws(
-        spawn.draw_uniform(gens, spawn.robot_draws() + 1 + respawn_draws(cfg),
-                           device),
-        (spawn.robot_draws(), 1, respawn_draws(cfg)))
+    varies = cfg.sim.human_num_range > 0
+    sizes = (spawn.robot_draws(), 1, respawn_draws(cfg), int(varies))
+    u_robot, u_nd, u_humans, u_num = spawn.split_draws(
+        spawn.draw_uniform(gens, sum(sizes), device), sizes)
     pos, goal = spawn.sample_robot_position(u_robot, cfg.sim.arena_size, 8.0)
-    # human_num_range == 0 (check_supported): every slot is active
     human_num = torch.full((B,), A, dtype=torch.long, device=device)
+    if varies:
+        lo = cfg.sim.min_human_num
+        human_num = lo + _uniform_int(u_num[:, 0], human_num - lo)
 
     def full(shape, v, dtype=torch.float32):
         return torch.full(shape, v, device=device, dtype=dtype)
@@ -397,10 +574,10 @@ def reset(cfg: Config, gens: List[torch.Generator], device
                         radius=full((B, A), cfg.humans.radius),
                         v_pref=full((B, A), cfg.humans.v_pref))
     dummy = torch.tensor(BELIEF_DUMMY, device=device).expand(B, A, 5)
-    L = cfg.obs_buffer_len
+    L = cfg.obs_buffer_len if cfg.sim.predict_method == "inferred" else 0
     state = EnvState(
         gens=list(gens), robot=robot, humans=humans, human_num=human_num,
-        last_human_states=dummy.clone(),
+        last_human_states=dummy.clone(), prev_human_states=dummy.clone(),
         visible_masks=full((B, A), False, torch.bool),
         potential=-torch.linalg.norm(pos - goal, dim=-1),
         global_time=full((B,), 0.0),
@@ -416,28 +593,94 @@ def reset(cfg: Config, gens: List[torch.Generator], device
     return state, obs
 
 
-def step(cfg: Config, state: EnvState, action, phase: str
+ROBOT_POLICIES = ("network", "orca", "social_force")
+
+
+def scripted_robot_action(cfg: Config, state: EnvState, policy: str,
+                          truth: Optional[torch.Tensor] = None):
+    """The ORCA or social-force robot's velocity (B, 2), acting on its
+    belief states (crowd_sim.py:614-656; crowd_sim_var_num.py:371-375).
+    ORCA in the CrowdSimPred envs takes every ground-truth future position
+    of every human as a neighbour (crowd_sim_pred.py:105-116): ``truth`` is
+    that future (``calc_human_future_traj(..., state.visible_masks,
+    "truth")``), computed here when not given. With
+    ``orca.stale_neighbor_radii`` the neighbours' radii are the fixed
+    :func:`stale_neighbor_radii` instead of the beliefs'."""
+    A, K = cfg.sim.max_human_num, cfg.sim.predict_steps
+    r = state.robot
+    active = _active_mask(cfg, state.human_num)
+    beliefs = state.last_human_states                          # (B, A, 5)
+    if policy == "social_force":
+        return social_force_velocity(
+            r.pos, r.vel, r.radius, r.goal, r.v_pref, beliefs[..., :2],
+            beliefs[..., 4], active, cfg.sf.A, cfg.sf.B, cfg.sf.KI,
+            cfg.env.time_step)
+    if policy != "orca":
+        raise ValueError(f"unknown robot policy {policy}")
+    inflate = _inflate(cfg)
+    if cfg.sim.predict_method == "none":
+        nbr_pos, nbr_vel = beliefs[..., :2], beliefs[..., 2:4]
+        nbr_radius = beliefs[..., 4]
+        if cfg.orca.stale_neighbor_radii:
+            nbr_radius = stale_neighbor_radii(A).to(r.pos.device).expand_as(
+                nbr_radius)
+        nbr_mask = active
+    else:
+        if truth is None:
+            truth = calc_human_future_traj(cfg, state, state.visible_masks,
+                                           "truth")
+        B = r.pos.shape[0]
+        nbr_pos = truth[..., :2].reshape(B, (K + 1) * A, 2)
+        nbr_vel = truth[..., 2:].reshape(B, (K + 1) * A, 2)
+        nbr_radius = beliefs[..., 4].repeat(1, K + 1)
+        nbr_mask = active.repeat(1, K + 1)
+    return orca_velocity_batch(
+        r.pos, r.vel, r.radius + inflate, r.v_pref,
+        _pref_velocity(r.goal, r.pos), nbr_pos, nbr_vel, nbr_radius + inflate,
+        nbr_mask, cfg.env.time_step, cfg.orca.time_horizon,
+        state.orca_neighbor_dist)
+
+
+def step(cfg: Config, state: EnvState, action, phase: str,
+         robot_policy: str = "network"
          ) -> Tuple[EnvState, Observation, torch.Tensor, torch.Tensor, StepInfo]:
     """One control step for every env (crowd_sim_var_num.py:366-460; JAX
-    ``crowd_sim.py:657-745``). ``action`` (B, 2) is the raw policy output
-    (vx, vy), clipped here. ``phase`` is "train" or "test"; only the test
-    phase runs the ground-truth future rollout (:694-698)."""
+    ``crowd_sim.py:659-745``). ``action`` (B, 2) is the raw policy output
+    (vx, vy), clipped here; with ``robot_policy`` "orca" or "social_force"
+    the scripted robot's velocity replaces it, unclipped, as in the JAX
+    package. ``phase`` is "train" or "test"; only the test phase runs the
+    ground-truth future rollout (:694-698). With ``human_num_range > 0`` the
+    human count varies every 5 s (:727-735)."""
     check_supported(cfg)
     if phase not in ("train", "test"):
         raise ValueError(f"phase must be 'train' or 'test', got {phase!r}")
+    if robot_policy not in ROBOT_POLICIES:
+        raise ValueError(f"robot_policy must be one of {ROBOT_POLICIES}, "
+                         f"got {robot_policy!r}")
     # this step's random numbers, a fixed count per env whatever happens
+    varies = cfg.sim.human_num_range > 0
     sizes = ((goal_change_draws(cfg) if cfg.humans.random_goal_changing else 0),
-             (respawn_draws(cfg) if cfg.humans.end_goal_changing else 0))
-    u_goal, u_end = spawn.split_draws(
+             (respawn_draws(cfg) if cfg.humans.end_goal_changing else 0),
+             (vary_draws(cfg) if varies else 0))
+    u_goal, u_end, u_vary = spawn.split_draws(
         spawn.draw_uniform(state.gens, sum(sizes), action.device), sizes)
 
-    a = kinematics.clip_holonomic_action(action, state.robot.v_pref)
+    # the ground-truth future of the pre-step state: the test phase's
+    # intrusion accounting (:385-388) and the CrowdSimPred ORCA robot's
+    # neighbours read the same rollout
+    truth = None
+    if phase == "test" or (robot_policy == "orca"
+                           and cfg.sim.predict_method != "none"):
+        truth = calc_human_future_traj(cfg, state, state.visible_masks,
+                                       "truth")
+    if robot_policy == "network":
+        a = kinematics.clip_holonomic_action(action, state.robot.v_pref)
+    else:
+        a = scripted_robot_action(cfg, state, robot_policy, truth)
     human_actions = get_human_actions(cfg, state)
 
     if phase == "test":
-        # refresh the truth future for intrusion accounting (:385-388)
-        state = dataclasses.replace(state, human_future_traj=(
-            calc_human_future_traj(cfg, state, state.visible_masks)))
+        state = dataclasses.replace(state, human_future_traj=truth)
     reward, done, new_potential, info = calc_reward(
         cfg, state, state.human_future_traj, phase)
 
@@ -455,9 +698,13 @@ def step(cfg: Config, state: EnvState, action, phase: str
         global_time=state.global_time + cfg.env.time_step,
         step_count=state.step_count + 1)
 
-    # every-5 s goal events, guarded by the step counter
+    # every-5 s population and goal events, guarded by the step counter
     steps_per_5s = int(round(5.0 / cfg.env.time_step))
     at_5s = (state.step_count % steps_per_5s) == 0
+    if varies and bool(at_5s.any()):
+        varied = vary_human_num(cfg, u_vary, state,
+                                pred_rule=cfg.sim.predict_method != "none")
+        state = tree_where(at_5s, varied, state)
 
     obs, state = generate_ob(cfg, state, reset=False)
 

@@ -50,14 +50,15 @@ class EnvState:
     humans: HumanState
     human_num: torch.Tensor          # (B,) int64 — active slot count
     last_human_states: torch.Tensor  # (B, A, 5) belief [px, py, vx, vy, r]
+    prev_human_states: torch.Tensor  # (B, A, 5) the belief one step earlier
     visible_masks: torch.Tensor      # (B, A) bool
     potential: torch.Tensor          # (B,)
     global_time: torch.Tensor        # (B,)
     step_count: torch.Tensor         # (B,) int64
     orca_neighbor_dist: torch.Tensor  # (B,)
-    traj_buffer: torch.Tensor        # (B, L, A, 2) GST history
-    mask_buffer: torch.Tensor        # (B, L, A) bool
-    human_future_traj: torch.Tensor  # (B, K+1, A, 4)
+    traj_buffer: torch.Tensor        # (B, L, A, 2) GST history (L = 0
+    mask_buffer: torch.Tensor        # (B, L, A) bool   without GST)
+    human_future_traj: torch.Tensor  # (B, K+1, A, 4) const_vel / truth future
 
 
 @dataclasses.dataclass

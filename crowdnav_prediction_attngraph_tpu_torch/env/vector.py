@@ -1,6 +1,6 @@
-"""Vectorized env with auto-reset and the GST pretext pass (JAX package
-``env/vector.py:54-104``; the reference's ShmemVecEnv workers,
-shmem_vec_env.py:140-142, and VecPretextNormalize).
+"""Vectorized env with auto-reset and, in the GST env, the pretext pass
+(JAX package ``env/vector.py:54-104``; the reference's ShmemVecEnv
+workers, shmem_vec_env.py:140-142, and VecPretextNormalize).
 
 The port's env functions already take a leading env axis, so the batch is
 the step itself. Auto-reset follows the worker semantics: a done env's
@@ -13,7 +13,7 @@ step).
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -25,21 +25,25 @@ from .types import EnvState, tree_scatter
 
 
 def vec_reset_with_pretext(cfg: Config, gens: List[torch.Generator],
-                           gst_model: STModel, device):
-    """Reset one env per generator, then the initial pretext pass
-    (``vector.py:96-103``; VecPretextNormalize.reset:85-101)."""
+                           gst_model: Optional[STModel], device):
+    """Reset one env per generator, then, in the ``inferred`` env, the
+    initial pretext pass (``vector.py:96-103``;
+    VecPretextNormalize.reset:85-101)."""
     states, obs = crowd_sim.reset(cfg, gens, device)
-    zero = torch.zeros(len(gens), device=device)
-    states, obs, _, _ = pretext_process(cfg, gst_model, states, obs, zero)
+    if cfg.sim.predict_method == "inferred":
+        zero = torch.zeros(len(gens), device=device)
+        states, obs, _, _ = pretext_process(cfg, gst_model, states, obs, zero)
     return states, obs
 
 
 def vec_step(cfg: Config, states: EnvState, actions, phase: str,
-             gst_model: STModel):
+             gst_model: Optional[STModel]):
     """Batched step with auto-reset (``vector.py:54-93``). Returns (states',
     obs', rewards (B,), dones (B,), infos, pretext penalties (B,)); the
     penalty is also inside the rewards and is returned on its own so episode
-    returns can leave it out, as the reference's Monitor does."""
+    returns can leave it out, as the reference's Monitor does. Only the
+    ``inferred`` env runs the GST pretext (``gst_model``); elsewhere the
+    penalty is 0."""
     states, obs, rew, done, info = crowd_sim.step(cfg, states, actions, phase)
     idx = done.nonzero()[:, 0]
     if idx.numel():
@@ -47,6 +51,9 @@ def vec_step(cfg: Config, states: EnvState, actions, phase: str,
             cfg, [states.gens[i] for i in idx.tolist()], actions.device)
         states = tree_scatter(idx, fresh_states, states)
         obs = tree_scatter(idx, fresh_obs, obs)
-    states, obs, rew, penalty = pretext_process(cfg, gst_model, states, obs,
-                                                rew)
+    if cfg.sim.predict_method == "inferred":
+        states, obs, rew, penalty = pretext_process(cfg, gst_model, states,
+                                                    obs, rew)
+    else:
+        penalty = torch.zeros_like(rew)
     return states, obs, rew, done, info, penalty

@@ -66,6 +66,25 @@ __device__ __forceinline__ void store4(T* dst, int c, int hd, float4 v, float sc
     }
 }
 
+// The resident CUDA-core kernels hold a row-head's whole rows in shared
+// memory (A <= 64, head dim <= 128). Past that, the tiled kernels walk
+// chunks of queries and keys and, for head dims past kColChunk, chunks of
+// columns: a logit is summed over the column chunks in order (each chunk in
+// column order), and each output column chunk is accumulated on its own,
+// the logits recomputed for it. Their shared memory does not grow with A or
+// the head dim, so they take any A >= 1 and any head dim.
+constexpr int kResidentA = 64;
+constexpr int kResidentHeadDim = 128;
+constexpr int kColChunk = 128;
+
+__host__ __device__ __forceinline__ bool resident_attention(int A, int hd) {
+  return A <= kResidentA && hd <= kResidentHeadDim;
+}
+// columns staged at a time: the whole padded row up to kColChunk
+__host__ __device__ __forceinline__ int col_chunk(int hd) {
+  return padded_head_dim(hd) < kColChunk ? padded_head_dim(hd) : kColChunk;
+}
+
 // The tensor-core path (bf16, A <= 64, head dim a multiple of 16): a
 // row-head's q, k, v (and dattn) rows are staged in shared memory as bf16 at
 // a pitch of hd + 8 (16-byte rows, ldmatrix without bank conflicts), A padded

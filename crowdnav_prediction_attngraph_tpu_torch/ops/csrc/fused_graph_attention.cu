@@ -30,15 +30,21 @@
 // q and rounds. Between them runs the masked softmax attention, one block per
 // (row, head): in bf16 with A <= 64 and head dim % 16 == 0 (the paths'
 // shapes) on mma.sync from bf16 rows in shared memory, one warp per 16
-// queries; otherwise on CUDA cores from f32 rows, per 64 queries, A <= 64 in
-// one pass (the shared warp softmax of softmax64.cuh), larger A over chunks
-// of 64 keys, a first pass for the running max and sum and a second for the
-// rounded P and P.v. Device launches per call: bf16 4 (one f32 -> bf16
-// conversion of x and the weights, QKV product, attention, output product),
-// f32 3. No sum depends on the launch order or uses atomics: two runs give
-// the same bits.
+// queries; otherwise on CUDA cores from f32 rows: A <= 64 with head dim <=
+// 128 in one pass over resident rows (the shared warp softmax of
+// softmax64.cuh), any other shape by the tiled kernel, per 64 queries over
+// chunks of 64 keys and, past head dim 128, chunks of 128 columns
+// (attention_rows.cuh), a first pass for the running max and sum and a
+// second for the rounded P and P.v. Device launches per call: bf16 4 (one
+// f32 -> bf16 conversion of x and the weights, QKV product, attention,
+// output product), f32 3. No sum depends on the launch order or uses
+// atomics: two runs give the same bits.
 //
-// Limits: 1 <= A <= 256, head dim <= 128, D % 8 == 0 (16-byte copies).
+// Shapes: any A >= 1, any head dim, any D that the head count divides.
+// Operand rows that are not a multiple of 16 bytes (D % 8 != 0 in bf16,
+// D % 4 != 0 in f32) take the product's element loads (tc_gemm.cuh). No
+// buffer here grows with A or the head dim: the card's memory for the
+// caller's tensors is the only limit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,17 +59,16 @@ using tc::bf16;
 
 constexpr int kThreads = 128;
 constexpr int kChunk = 64;  // queries per block and keys per pass
-constexpr int kMaxA = 256;
-constexpr int kMaxHeadDim = 128;
 
+// The resident kernel: A <= 64, head dim <= 128.
 size_t attention_smem_bytes(int A, int hd) {
-  const int kc = A < kChunk ? A : kChunk;
-  const int kc4 = (kc + 3) & ~3;
-  return sizeof(float) * (4 * kc * row_pitch(hd) + kc * kc4 + 2 * kChunk) + kMaxA;
+  const int a4 = (A + 3) & ~3;
+  return sizeof(float) * (4 * A * row_pitch(hd) + A * a4) + kResidentA;
 }
 
 // qkv (T, 3D) of type T: q (already scaled), k, v; attn (T, D) of type T.
-// Block (query chunk, head, row). Each thread computes logits one at a time
+// Block (head, row), A <= 64 and head dim <= 128: the row-head's q, k and v
+// rows stay in shared memory. Each thread computes logits one at a time
 // (float4 reads along the head dim) and P.v four columns at a time.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -72,23 +77,17 @@ attention_forward_kernel(const T* __restrict__ qkv, const unsigned char* __restr
   constexpr int kBf16 = std::is_same<T, bf16>::value;
   extern __shared__ __align__(16) float smem[];
   const int hd = D / H, hd4 = padded_head_dim(hd), ld = row_pitch(hd), D3 = 3 * D;
-  const int h0 = blockIdx.y * hd;
-  const int q0 = blockIdx.x * kChunk;
-  const int nq = min(kChunk, A - q0);
-  const int kc = min(kChunk, A);  // keys per pass
-  const int pld = (kc + 3) & ~3;  // P's pitch
-  const int nkb = (A + kChunk - 1) / kChunk;
-  float* qs = smem;          // nq x ld
-  float* ks = qs + kc * ld;  // kc x ld
-  float* vs = ks + kc * ld;
-  float* os = vs + kc * ld;  // nq x ld: P.v summed over key chunks
-  float* ps = os + kc * ld;  // nq x pld: logits, then P
-  float* m_run = ps + kc * pld;
-  float* l_run = m_run + kChunk;
-  unsigned char* valid = reinterpret_cast<unsigned char*>(l_run + kChunk);
+  const int h0 = blockIdx.x * hd;
+  const int pld = (A + 3) & ~3;  // P's pitch
+  float* qs = smem;          // A x ld each: q, k, v
+  float* ks = qs + A * ld;
+  float* vs = ks + A * ld;
+  float* os = vs + A * ld;   // A x ld: P.v
+  float* ps = os + A * ld;   // A x pld: logits, then P
+  unsigned char* valid = reinterpret_cast<unsigned char*>(ps + A * pld);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t tok0 = static_cast<size_t>(blockIdx.z) * A;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const size_t tok0 = static_cast<size_t>(blockIdx.y) * A;
   const T* base = qkv + tok0 * D3 + h0;
 
   int mine = 0;
@@ -96,106 +95,161 @@ attention_forward_kernel(const T* __restrict__ qkv, const unsigned char* __restr
     valid[j] = mask[tok0 + j] != 0;
     mine |= valid[j];
   }
-  load_rows(qs, ld, base + static_cast<size_t>(q0) * D3, D3, nq, hd, kThreads);
+  load_rows(qs, ld, base, D3, A, hd, kThreads);
+  load_rows(ks, ld, base + D, D3, A, hd, kThreads);
+  load_rows(vs, ld, base + 2 * D, D3, A, hd, kThreads);
+  const int any_valid = __syncthreads_or(mine);
+  for (int idx = tid; idx < A * A; idx += kThreads) {
+    const int i = idx / A, j = idx - i * A;
+    ps[i * pld + j] = dot_rows(qs + i * ld, ks + j * ld, hd4);
+  }
+  __syncthreads();
+  for (int i = warp; i < A; i += kThreads / 32)
+    warp_masked_softmax64(ps + i * pld, valid, A, any_valid, kBf16);
+  __syncthreads();
+  const int n4 = hd4 / 4;
+  for (int idx = tid; idx < A * n4; idx += kThreads) {
+    const int i = idx / n4, c = (idx - i * n4) * 4;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < A; ++j) axpy4(o, ps[i * pld + j], vs + j * ld + c);
+    store4(attn + (tok0 + i) * D + h0 + c, c, hd, o);
+  }
+}
+
+// The tiled kernel: any A, any head dim. Block (query chunk, head, row);
+// per pass chunks of kChunk keys, and columns in chunks of col_chunk(hd).
+size_t tiled_smem_bytes(int hd) {
+  return sizeof(float) * (4 * kChunk * (col_chunk(hd) + 4) + kChunk * kChunk + 2 * kChunk) +
+         kChunk;
+}
+
+// Pass 1 takes each query's running max and sum over the key chunks; pass
+// 2, for each output column chunk, recomputes the logits chunk by chunk,
+// rounds P = exp(s - max) / sum (bf16 mode) as the plain version does, and
+// adds P.v over the key chunks. Two passes rather than an online softmax,
+// so that P is rounded after its normalisation, where the plain version
+// rounds it.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+attention_forward_tiled_kernel(const T* __restrict__ qkv, const unsigned char* __restrict__ mask,
+                               T* __restrict__ attn, int A, int D, int H) {
+  constexpr int kBf16 = std::is_same<T, bf16>::value;
+  extern __shared__ __align__(16) float smem[];
+  const int hd = D / H, D3 = 3 * D;
+  const int cwmax = col_chunk(hd), ld = cwmax + 4;
+  const int ncc = (hd + cwmax - 1) / cwmax;
+  const int h0 = blockIdx.y * hd;
+  const int q0 = blockIdx.x * kChunk;
+  const int nq = min(kChunk, A - q0);
+  const int nkb = (A + kChunk - 1) / kChunk;
+  float* qs = smem;              // kChunk x ld each: a column chunk of q, k, v
+  float* ks = qs + kChunk * ld;
+  float* vs = ks + kChunk * ld;
+  float* os = vs + kChunk * ld;  // kChunk x ld: P.v of one output column chunk
+  float* ps = os + kChunk * ld;  // kChunk x kChunk: logits, then P
+  float* m_run = ps + kChunk * kChunk;
+  float* l_run = m_run + kChunk;
+  unsigned char* kvalid = reinterpret_cast<unsigned char*>(l_run + kChunk);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t tok0 = static_cast<size_t>(blockIdx.z) * A;
+  const T* base = qkv + tok0 * D3 + h0;
+
+  int mine = 0;
+  for (int j = tid; j < A; j += kThreads) mine |= mask[tok0 + j] != 0;
+  for (int i = tid; i < nq; i += kThreads) {
+    m_run[i] = -INFINITY;
+    l_run[i] = 0.f;
+  }
   const int any_valid = __syncthreads_or(mine);
 
-  auto load_kv = [&](int k0, int nk, bool with_v) {
-    load_rows(ks, ld, base + static_cast<size_t>(k0) * D3 + D, D3, nk, hd, kThreads);
-    if (with_v) load_rows(vs, ld, base + static_cast<size_t>(k0) * D3 + 2 * D, D3, nk, hd, kThreads);
-  };
-  auto logits = [&](int nk) {
-    for (int idx = tid; idx < nq * nk; idx += kThreads) {
-      const int i = idx / nk, j = idx - i * nk;
-      ps[i * pld + j] = dot_rows(qs + i * ld, ks + j * ld, hd4);
-    }
-  };
-  // os (+)= P . v over this chunk's nk keys; each thread keeps its elements
-  auto accumulate_pv = [&](int nk, bool first) {
-    const int n4 = hd4 / 4;
-    for (int idx = tid; idx < nq * n4; idx += kThreads) {
-      const int i = idx / n4, c = (idx - i * n4) * 4;
-      float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int j = 0; j < nk; ++j) axpy4(o, ps[i * pld + j], vs + j * ld + c);
-      float4* dst = reinterpret_cast<float4*>(os + i * ld + c);
-      if (!first) {
-        const float4 prev = *dst;
-        o = make_float4(prev.x + o.x, prev.y + o.y, prev.z + o.z, prev.w + o.w);
-      }
-      *dst = o;
-    }
-  };
-
-  if (nkb == 1) {
-    load_kv(0, A, true);
-    __syncthreads();
-    logits(A);
-    __syncthreads();
-    for (int i = warp; i < nq; i += kThreads / 32)
-      warp_masked_softmax64(ps + i * pld, valid, A, any_valid, kBf16);
-    __syncthreads();
-    accumulate_pv(A, true);
-  } else {
-    // pass 1: each query's running max and sum over the valid keys
-    for (int i = tid; i < nq; i += kThreads) {
-      m_run[i] = -INFINITY;
-      l_run[i] = 0.f;
-    }
-    for (int kb = 0; kb < nkb; ++kb) {
-      const int k0 = kb * kChunk, nk = min(kChunk, A - k0);
-      __syncthreads();
-      load_kv(k0, nk, false);
-      __syncthreads();
-      logits(nk);
-      __syncthreads();
-      for (int i = warp; i < nq; i += kThreads / 32) {
-        float s[2];
-        float mc = -INFINITY;
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int j = lane + 32 * t;
-          s[t] = (j < nk && valid[k0 + j]) ? ps[i * pld + j] : -INFINITY;
-          mc = fmaxf(mc, s[t]);
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, off));
-        const float m_old = m_run[i];
-        const float m_new = fmaxf(m_old, mc);
-        if (m_new == -INFINITY) continue;  // no valid key yet (the whole warp)
-        float sum = 0.f;
-#pragma unroll
-        for (int t = 0; t < 2; ++t) sum += s[t] == -INFINITY ? 0.f : expf(s[t] - m_new);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-        if (lane == 0) {
-          l_run[i] = l_run[i] * expf(m_old - m_new) + sum;
-          m_run[i] = m_new;
-        }
-      }
-    }
-    // pass 2: the rounded softmax weights and P . v, chunk by chunk
-    for (int kb = 0; kb < nkb; ++kb) {
-      const int k0 = kb * kChunk, nk = min(kChunk, A - k0);
-      __syncthreads();
-      load_kv(k0, nk, true);
-      __syncthreads();
-      logits(nk);
+  // ps = q k^T for keys [k0, k0 + nk), summed over the column chunks;
+  // leaves the last column chunk of q and k staged and kvalid filled
+  // (q is staged once when the head dim is one column chunk)
+  const bool q_resident = ncc == 1;
+  if (q_resident) load_rows(qs, ld, base + static_cast<size_t>(q0) * D3, D3, nq, hd, kThreads);
+  auto logits = [&](int k0, int nk) {
+    for (int cc = 0; cc < ncc; ++cc) {
+      const int c0 = cc * cwmax, cw = min(cwmax, hd - c0), cw4 = padded_head_dim(cw);
+      __syncthreads();  // the previous readers of qs, ks and ps are done
+      if (!q_resident)
+        load_rows(qs, ld, base + static_cast<size_t>(q0) * D3 + c0, D3, nq, cw, kThreads);
+      load_rows(ks, ld, base + static_cast<size_t>(k0) * D3 + D + c0, D3, nk, cw, kThreads);
+      if (cc == 0)
+        for (int j = tid; j < nk; j += kThreads) kvalid[j] = mask[tok0 + k0 + j] != 0;
       __syncthreads();
       for (int idx = tid; idx < nq * nk; idx += kThreads) {
         const int i = idx / nk, j = idx - i * nk;
-        ps[i * pld + j] = (any_valid && valid[k0 + j])
-                              ? round_to(expf(ps[i * pld + j] - m_run[i]) / l_run[i], kBf16)
-                              : 0.f;
+        const float s = dot_rows(qs + i * ld, ks + j * ld, cw4);
+        ps[i * kChunk + j] = cc == 0 ? s : ps[i * kChunk + j] + s;
       }
-      __syncthreads();
-      accumulate_pv(nk, kb == 0);
+    }
+    __syncthreads();
+  };
+
+  // pass 1: each query's running max and sum over the valid keys
+  for (int kb = 0; kb < nkb; ++kb) {
+    const int k0 = kb * kChunk, nk = min(kChunk, A - k0);
+    logits(k0, nk);
+    for (int i = warp; i < nq; i += kThreads / 32) {
+      float s[2];
+      float mc = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int j = lane + 32 * t;
+        s[t] = (j < nk && kvalid[j]) ? ps[i * kChunk + j] : -INFINITY;
+        mc = fmaxf(mc, s[t]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, off));
+      const float m_old = m_run[i];
+      const float m_new = fmaxf(m_old, mc);
+      if (m_new == -INFINITY) continue;  // no valid key yet (the whole warp)
+      float sum = 0.f;
+#pragma unroll
+      for (int t = 0; t < 2; ++t) sum += s[t] == -INFINITY ? 0.f : expf(s[t] - m_new);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        l_run[i] = l_run[i] * expf(m_old - m_new) + sum;
+        m_run[i] = m_new;
+      }
     }
   }
-  // each thread writes the elements it accumulated
-  const int n4 = hd4 / 4;
-  for (int idx = tid; idx < nq * n4; idx += kThreads) {
-    const int i = idx / n4, c = (idx - i * n4) * 4;
-    store4(attn + (tok0 + q0 + i) * D + h0 + c, c, hd,
-           *reinterpret_cast<const float4*>(os + i * ld + c));
+  // pass 2: per output column chunk, the rounded softmax weights and P . v
+  for (int oc = 0; oc < ncc; ++oc) {
+    const int c0 = oc * cwmax, cw = min(cwmax, hd - c0), n4 = padded_head_dim(cw) / 4;
+    for (int kb = 0; kb < nkb; ++kb) {
+      const int k0 = kb * kChunk, nk = min(kChunk, A - k0);
+      logits(k0, nk);
+      load_rows(vs, ld, base + static_cast<size_t>(k0) * D3 + 2 * D + c0, D3, nk, cw, kThreads);
+      for (int idx = tid; idx < nq * nk; idx += kThreads) {
+        const int i = idx / nk, j = idx - i * nk;
+        ps[i * kChunk + j] =
+            (any_valid && kvalid[j])
+                ? round_to(expf(ps[i * kChunk + j] - m_run[i]) / l_run[i], kBf16)
+                : 0.f;
+      }
+      __syncthreads();
+      // os (+)= P . v over this chunk's keys; each thread keeps its elements
+      for (int idx = tid; idx < nq * n4; idx += kThreads) {
+        const int i = idx / n4, c = (idx - i * n4) * 4;
+        float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int j = 0; j < nk; ++j) axpy4(o, ps[i * kChunk + j], vs + j * ld + c);
+        float4* dst = reinterpret_cast<float4*>(os + i * ld + c);
+        if (kb > 0) {
+          const float4 prev = *dst;
+          o = make_float4(prev.x + o.x, prev.y + o.y, prev.z + o.z, prev.w + o.w);
+        }
+        *dst = o;
+      }
+    }
+    // each thread writes the elements it accumulated
+    for (int idx = tid; idx < nq * n4; idx += kThreads) {
+      const int i = idx / n4, c = (idx - i * n4) * 4;
+      store4(attn + (tok0 + q0 + i) * D + h0 + c0 + c, c, cw,
+             *reinterpret_cast<const float4*>(os + i * ld + c));
+    }
   }
 }
 
@@ -307,14 +361,24 @@ cudaError_t launch_attention(const T* qkv, const unsigned char* mask, T* attn, i
     }
   }
 
+  if (resident_attention(A, hd)) {
+    static unsigned smem_set = 0;
+    cudaError_t err = tc::allow_smem(
+        reinterpret_cast<const void*>(attention_forward_kernel<T>),
+        static_cast<int>(attention_smem_bytes(kResidentA, kResidentHeadDim)), smem_set);
+    if (err != cudaSuccess) return err;
+    attention_forward_kernel<T><<<dim3(H, rows), kThreads, attention_smem_bytes(A, hd), stream>>>(
+        qkv, mask, attn, A, D, H);
+    return cudaGetLastError();
+  }
   static unsigned smem_set = 0;
-  cudaError_t err =
-      tc::allow_smem(reinterpret_cast<const void*>(attention_forward_kernel<T>),
-                     static_cast<int>(attention_smem_bytes(kMaxA, kMaxHeadDim)), smem_set);
+  cudaError_t err = tc::allow_smem(
+      reinterpret_cast<const void*>(attention_forward_tiled_kernel<T>),
+      static_cast<int>(tiled_smem_bytes(kColChunk)), smem_set);
   if (err != cudaSuccess) return err;
-  const size_t smem = attention_smem_bytes(A, D / H);
   const dim3 grid((A + kChunk - 1) / kChunk, H, rows);
-  attention_forward_kernel<T><<<grid, kThreads, smem, stream>>>(qkv, mask, attn, A, D, H);
+  attention_forward_tiled_kernel<T><<<grid, kThreads, tiled_smem_bytes(hd), stream>>>(
+      qkv, mask, attn, A, D, H);
   return cudaGetLastError();
 }
 
@@ -345,7 +409,7 @@ cudaError_t forward(const T* x, const unsigned char* mask, const T* w_qkv, const
 // w_qkv_c (D*3D), w_out_c (D*D), qkv (rows*A*3D) and attn (rows*A*D), all
 // bf16; in f32 mode x_c, w_qkv_c and w_out_c are unused and qkv and attn
 // are f32. use_bf16 != 0 selects bf16 rounding of the product inputs.
-// Takes 1 <= A <= 256, D / num_heads <= 128 and D % 8 == 0.
+// Takes any A >= 1 and any D that num_heads divides.
 // Returns the first cudaError_t of its launches (0 on success); nothing is
 // launched for bad sizes.
 extern "C" int fused_graph_attention_forward(
@@ -353,8 +417,7 @@ extern "C" int fused_graph_attention_forward(
     const void* w_out, const void* b_out, void* out, void* x_c, void* w_qkv_c,
     void* w_out_c, void* qkv, void* attn, int rows, int A, int D, int num_heads,
     int use_bf16, int w_out_t, float scale, void* stream) {
-  if (rows < 0 || A < 1 || A > kMaxA || num_heads < 1 || D < 8 || D % num_heads != 0 ||
-      D / num_heads > kMaxHeadDim || D % 8 != 0)
+  if (rows < 0 || A < 1 || num_heads < 1 || D < 1 || D % num_heads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   const auto* m = static_cast<const unsigned char*>(mask);

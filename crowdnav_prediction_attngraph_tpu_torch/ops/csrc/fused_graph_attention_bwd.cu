@@ -28,13 +28,14 @@
 //      tc_gemm.cuh (the f32 mode runs its CUDA-core FMA variant);
 //   4. the attention backward, one block per (row, head): in bf16 with
 //      A <= 64 and head dim % 16 == 0 (the paths' shapes) every small
-//      product on mma.sync; otherwise on CUDA cores, where A <= 64 keeps the
-//      row-head's q, k, v, dattn, P and dS resident and computes P
-//      (softmax64.cuh), the rounded attention output, dv, dP, dS, dq x scale
-//      and dk once each, and 64 < A <= 256 works in chunks of 32
-//      queries and keys: a pass for each query's softmax max, sum and
-//      rowsum(dP o P), a query-side pass (attention output, dq) and a
-//      key-side pass (dk, dv), recomputing the logits each time. It writes
+//      product on mma.sync; otherwise on CUDA cores, where A <= 64 with head
+//      dim <= 128 keeps the row-head's q, k, v, dattn, P and dS resident and
+//      computes P (softmax64.cuh), the rounded attention output, dv, dP, dS,
+//      dq x scale and dk once each, and any other shape works in chunks of
+//      32 queries and keys and, past head dim 128, of 128 columns: a pass
+//      for each query's softmax max, sum and rowsum(dP o P), a query-side
+//      pass (attention output, dq) and a key-side pass (dk, dv), one output
+//      column chunk at a time, recomputing the logits each time. It writes
 //      dqkv in the compute type (for the products) and, for the bias sums,
 //      in f32 per token (CUDA-core kernels) or as each row's f32 sums over
 //      its tokens (the tensor-core kernel of the bf16, A <= 64 case);
@@ -48,7 +49,10 @@
 // Device launches per call: 8 in bf16, 7 in f32. No split-K across blocks
 // and no float atomics: two runs on the same inputs give the same bits.
 //
-// Limits: 1 <= A <= 256, head dim <= 128, D % 8 == 0 (16-byte copies).
+// Shapes: any A >= 1, any head dim, any D that the head count divides (the
+// products take rows that are not a multiple of 16 bytes by element loads,
+// tc_gemm.cuh); the tiled attention keeps its per-query statistics in the
+// caller's scratch, so no buffer here grows with A or the head dim.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,13 +65,16 @@ namespace {
 
 using tc::bf16;
 
-constexpr int kThreads = 128;       // resident attention kernel (A <= 64)
-constexpr int kThreadsChunk = 256;  // chunked attention kernel (A > 64)
-constexpr int kChunk = 32;          // queries / keys per chunk when A > 64
-constexpr int kMaxA = 256;
-constexpr int kMaxHeadDim = 128;
+constexpr int kThreads = 128;       // resident attention kernel
+constexpr int kThreadsTiled = 256;  // tiled attention kernel
+constexpr int kTile = 32;           // queries / keys per chunk of the tiled kernel
+// three tiled blocks an SM (~61 KB of shared memory each at head dim <=
+// 64): registers capped at 85 a thread; uncapped the compiler took 128 and
+// two blocks fit
+constexpr int kTiledBlocksPerSM = 3;
 
-// A <= 64: one block per (head, row) with everything resident.
+// A <= 64, head dim <= 128: one block per (head, row) with everything
+// resident.
 // qkv (T, 3D): q x scale_c, k, v (rounded); da (T, D): dattn (rounded).
 // Writes dqkv (T, 3D) f32, its copy in T when T is bf16 (dqkv_c), and the
 // rounded attention output attn (T, D). Dot products read float4 rows;
@@ -167,81 +174,116 @@ attention_backward_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
   }
 }
 
-// 64 < A <= 256: one block per (head, row), in chunks of kChunk queries and
-// keys; the same values as the resident kernel, with the softmax max and sum
-// taken over the chunks as running values.
+// Any other shape (A > 64 or head dim > 128): one block per (head, row), in
+// chunks of kTile queries and keys and, past head dim 128, chunks of
+// col_chunk(hd) columns; the same values as the resident kernel, with the
+// softmax max and sum taken over the key chunks as running values. The
+// staged query chunk's max, sum and rowsum(dP o P) live in shared memory;
+// each chunk's go to the caller's scratch `stats` (3 A floats a (row,
+// head)) after the first pass and come back with the chunk's rows, so
+// nothing here grows with A.
 template <typename T>
-__global__ void __launch_bounds__(kThreadsChunk)
-attention_backward_chunked_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
-                                  const unsigned char* __restrict__ mask,
-                                  float* __restrict__ dqkv, T* __restrict__ dqkv_c,
-                                  T* __restrict__ attn, int A, int D, int H, float scale) {
+__global__ void __launch_bounds__(kThreadsTiled, kTiledBlocksPerSM)
+attention_backward_tiled_kernel(const T* __restrict__ qkv, const T* __restrict__ da,
+                                const unsigned char* __restrict__ mask,
+                                float* __restrict__ dqkv, T* __restrict__ dqkv_c,
+                                T* __restrict__ attn, float* __restrict__ stats, int A, int D,
+                                int H, float scale) {
   constexpr int kBf16 = std::is_same<T, bf16>::value;
-  constexpr int NT = kThreadsChunk;
+  constexpr int NT = kThreadsTiled;
   extern __shared__ __align__(16) float smem[];
-  const int hd = D / H, hd4 = padded_head_dim(hd), ld = row_pitch(hd), D3 = 3 * D;
-  const int n4 = hd4 / 4;
+  const int hd = D / H, D3 = 3 * D;
+  const int cwmax = col_chunk(hd), ld = cwmax + 4;
+  const int ncc = (hd + cwmax - 1) / cwmax;
   const int h0 = blockIdx.x * hd;
-  float* qs = smem;                  // kChunk x ld each
-  float* das = qs + kChunk * ld;
-  float* ks = das + kChunk * ld;
-  float* vs = ks + kChunk * ld;
-  float* acc1 = vs + kChunk * ld;    // attention output, then dv
-  float* acc2 = acc1 + kChunk * ld;  // dq, then dk
-  float* ps = acc2 + kChunk * ld;    // kChunk x kChunk: logits, P, P_c
-  float* dps = ps + kChunk * kChunk; // dP, then dS
-  float* m_run = dps + kChunk * kChunk;  // A each: softmax max, sum, rowsum(dP o P)
-  float* l_run = m_run + kMaxA;
-  float* d_row = l_run + kMaxA;
-  unsigned char* valid = reinterpret_cast<unsigned char*>(d_row + kMaxA);
+  float* qs = smem;                 // kTile x ld each: a column chunk of q,
+  float* das = qs + kTile * ld;     // dattn, k and v
+  float* ks = das + kTile * ld;
+  float* vs = ks + kTile * ld;
+  float* acc1 = vs + kTile * ld;    // attention output, then dv
+  float* acc2 = acc1 + kTile * ld;  // dq, then dk
+  float* ps = acc2 + kTile * ld;    // kTile x kTile: logits, P, P_c
+  float* dps = ps + kTile * kTile;  // dP, then dS
+  float* qm = dps + kTile * kTile;  // the staged queries' softmax max,
+  float* ql = qm + kTile;           // sum and rowsum(dP o P)
+  float* qd = ql + kTile;
+  unsigned char* kvalid = reinterpret_cast<unsigned char*>(qd + kTile);
+  float* m_all = stats + (static_cast<size_t>(blockIdx.y) * H + blockIdx.x) * 3 * A;
+  float* l_all = m_all + A;
+  float* d_all = l_all + A;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t tok0 = static_cast<size_t>(blockIdx.y) * A;
   const T* base = qkv + tok0 * D3 + h0;
   const T* da_base = da + tok0 * D + h0;
   int mine = 0;
-  for (int j = tid; j < A; j += NT) {
-    valid[j] = mask[tok0 + j] != 0;
-    mine |= valid[j];
-    m_run[j] = -INFINITY;
-    l_run[j] = 0.f;
-    d_row[j] = 0.f;
-  }
+  for (int j = tid; j < A; j += NT) mine |= mask[tok0 + j] != 0;
   const int any_valid = __syncthreads_or(mine);
-  const int nb = (A + kChunk - 1) / kChunk;
+  const int nb = (A + kTile - 1) / kTile;
 
-  auto load_q = [&](int q0, int nq) {
-    load_rows(qs, ld, base + static_cast<size_t>(q0) * D3, D3, nq, hd, NT);
-    load_rows(das, ld, da_base + static_cast<size_t>(q0) * D, D, nq, hd, NT);
+  // With one column chunk the staged rows are reused while their chunk of
+  // queries or keys stays the same; otherwise every call restages them.
+  const bool one_chunk = ncc == 1;
+  int staged_q0 = -1, staged_k0 = -1, stats_q0 = -1;
+  auto load_q = [&](int q0, int nq, int c0, int cw) {
+    load_rows(qs, ld, base + static_cast<size_t>(q0) * D3 + c0, D3, nq, cw, NT);
+    load_rows(das, ld, da_base + static_cast<size_t>(q0) * D + c0, D, nq, cw, NT);
   };
-  auto load_kv = [&](int k0, int nk) {
-    load_rows(ks, ld, base + static_cast<size_t>(k0) * D3 + D, D3, nk, hd, NT);
-    load_rows(vs, ld, base + static_cast<size_t>(k0) * D3 + 2 * D, D3, nk, hd, NT);
+  auto load_kv = [&](int k0, int nk, int c0, int cw) {
+    load_rows(ks, ld, base + static_cast<size_t>(k0) * D3 + D + c0, D3, nk, cw, NT);
+    load_rows(vs, ld, base + static_cast<size_t>(k0) * D3 + 2 * D + c0, D3, nk, cw, NT);
   };
-  // ps = q k^T and dps = da v^T for the resident chunks
-  auto logits_dp = [&](int nq, int nk) {
-    for (int idx = tid; idx < nq * nk; idx += NT) {
-      const int i = idx / nk, j = idx - i * nk;
-      ps[i * kChunk + j] = dot_rows(qs + i * ld, ks + j * ld, hd4);
-      dps[i * kChunk + j] = dot_rows(das + i * ld, vs + j * ld, hd4);
+  // ps = q k^T and dps = da v^T for the chunks, summed over the column
+  // chunks in order; kvalid holds the keys' mask
+  auto logits_dp = [&](int q0, int nq, int k0, int nk) {
+    for (int cc = 0; cc < ncc; ++cc) {
+      const int c0 = cc * cwmax, cw = min(cwmax, hd - c0), cw4 = padded_head_dim(cw);
+      __syncthreads();  // the previous readers of the staged rows are done
+      if (!one_chunk || q0 != staged_q0) load_q(q0, nq, c0, cw);
+      if (q0 != stats_q0) {  // passes 2 and 3: the first pass's statistics
+        for (int i = tid; i < nq; i += NT) {
+          qm[i] = m_all[q0 + i];
+          ql[i] = l_all[q0 + i];
+          qd[i] = d_all[q0 + i];
+        }
+        stats_q0 = q0;
+      }
+      if (!one_chunk || k0 != staged_k0) {
+        load_kv(k0, nk, c0, cw);
+        if (cc == 0)
+          for (int j = tid; j < nk; j += NT) kvalid[j] = mask[tok0 + k0 + j] != 0;
+      }
+      staged_q0 = q0;
+      staged_k0 = k0;
+      __syncthreads();
+      for (int idx = tid; idx < nq * nk; idx += NT) {
+        const int i = idx / nk, j = idx - i * nk;
+        const float s = dot_rows(qs + i * ld, ks + j * ld, cw4);
+        const float dp = dot_rows(das + i * ld, vs + j * ld, cw4);
+        ps[i * kTile + j] = cc == 0 ? s : ps[i * kTile + j] + s;
+        dps[i * kTile + j] = cc == 0 ? dp : dps[i * kTile + j] + dp;
+      }
     }
+    __syncthreads();
   };
-  auto prob = [&](int q, int k, float s) {
-    return (any_valid && valid[k]) ? expf(s - m_run[q]) / l_run[q] : 0.f;
+  // P of staged query i and key j
+  auto prob = [&](int i, int j, float s) {
+    return (any_valid && kvalid[j]) ? expf(s - qm[i]) / ql[i] : 0.f;
   };
-  // ps <- P_c and dps <- dS for the resident chunks (needs the row stats)
-  auto p_and_ds = [&](int q0, int nq, int k0, int nk) {
+  // ps <- P_c and dps <- dS for the staged chunks (needs the row stats)
+  auto p_and_ds = [&](int nq, int nk) {
     for (int idx = tid; idx < nq * nk; idx += NT) {
       const int i = idx / nk, j = idx - i * nk;
-      const float p = prob(q0 + i, k0 + j, ps[i * kChunk + j]);
-      dps[i * kChunk + j] = round_to(p * (dps[i * kChunk + j] - d_row[q0 + i]), kBf16);
-      ps[i * kChunk + j] = round_to(p, kBf16);
+      const float p = prob(i, j, ps[i * kTile + j]);
+      dps[i * kTile + j] = round_to(p * (dps[i * kTile + j] - qd[i]), kBf16);
+      ps[i * kTile + j] = round_to(p, kBf16);
     }
   };
   // acc1 (+)= sum over `n` of w1 rows1 and acc2 (+)= w2 rows2, four
-  // columns a thread; w(x, y) reads the weight of output row x, term y
-  auto accumulate = [&](int nout, int n, bool first, const float* w1, int s1x, int s1y,
-                        const float* rows1, const float* w2, int s2x, int s2y,
+  // columns a thread over n4 float4 columns; w(x, y) reads the weight of
+  // output row x, term y
+  auto accumulate = [&](int nout, int n, int n4, bool first, const float* w1, int s1x,
+                        int s1y, const float* rows1, const float* w2, int s2x, int s2y,
                         const float* rows2) {
     for (int idx = tid; idx < nout * n4; idx += NT) {
       const int x = idx / n4, c = (idx - x * n4) * 4;
@@ -265,105 +307,103 @@ attention_backward_chunked_kernel(const T* __restrict__ qkv, const T* __restrict
   // pass 1: each query's running softmax max and sum over the key chunks,
   // then rowsum(dP o P) with the final max and sum
   for (int qb = 0; qb < nb; ++qb) {
-    const int q0 = qb * kChunk, nq = min(kChunk, A - q0);
-    __syncthreads();
-    load_q(q0, nq);
+    const int q0 = qb * kTile, nq = min(kTile, A - q0);
+    __syncthreads();  // the previous chunk's statistics are written out
+    for (int i = tid; i < nq; i += NT) {
+      qm[i] = -INFINITY;
+      ql[i] = 0.f;
+      qd[i] = 0.f;
+    }
+    stats_q0 = q0;
     for (int kb = 0; kb < nb; ++kb) {
-      const int k0 = kb * kChunk, nk = min(kChunk, A - k0);
-      __syncthreads();
-      load_kv(k0, nk);
-      __syncthreads();
-      logits_dp(nq, nk);
-      __syncthreads();
+      const int k0 = kb * kTile, nk = min(kTile, A - k0);
+      logits_dp(q0, nq, k0, nk);
       for (int i = warp; i < nq; i += NT / 32) {
-        const bool ok = lane < nk && valid[k0 + lane];
-        const float s = ok ? ps[i * kChunk + lane] : -INFINITY;
+        const bool ok = lane < nk && kvalid[lane];
+        const float s = ok ? ps[i * kTile + lane] : -INFINITY;
         float mc = s;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) mc = fmaxf(mc, __shfl_xor_sync(0xffffffffu, mc, off));
-        const float m_old = m_run[q0 + i];
+        const float m_old = qm[i];
         const float m_new = fmaxf(m_old, mc);
         if (m_new == -INFINITY) continue;  // no valid key yet (the whole warp)
         float sum = ok ? expf(s - m_new) : 0.f;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
         if (lane == 0) {
-          l_run[q0 + i] = l_run[q0 + i] * expf(m_old - m_new) + sum;
-          m_run[q0 + i] = m_new;
+          ql[i] = ql[i] * expf(m_old - m_new) + sum;
+          qm[i] = m_new;
         }
       }
     }
     for (int kb = 0; kb < nb; ++kb) {
-      const int k0 = kb * kChunk, nk = min(kChunk, A - k0);
-      __syncthreads();
-      load_kv(k0, nk);
-      __syncthreads();
-      logits_dp(nq, nk);
-      __syncthreads();
+      const int k0 = kb * kTile, nk = min(kTile, A - k0);
+      logits_dp(q0, nq, k0, nk);
       for (int i = warp; i < nq; i += NT / 32) {
-        float r = lane < nk ? dps[i * kChunk + lane] * prob(q0 + i, k0 + lane,
-                                                            ps[i * kChunk + lane])
-                            : 0.f;
+        float r = lane < nk ? dps[i * kTile + lane] * prob(i, lane, ps[i * kTile + lane]) : 0.f;
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) r += __shfl_xor_sync(0xffffffffu, r, off);
-        if (lane == 0) d_row[q0 + i] += r;
+        if (lane == 0) qd[i] += r;
       }
+    }
+    __syncthreads();
+    for (int i = tid; i < nq; i += NT) {
+      m_all[q0 + i] = qm[i];
+      l_all[q0 + i] = ql[i];
+      d_all[q0 + i] = qd[i];
     }
   }
 
-  // pass 2, query side: attention output o = P_c v and dq = dS k scale
+  // pass 2, query side: attention output o = P_c v and dq = dS k scale,
+  // one output column chunk at a time
   for (int qb = 0; qb < nb; ++qb) {
-    const int q0 = qb * kChunk, nq = min(kChunk, A - q0);
-    __syncthreads();
-    load_q(q0, nq);
-    for (int kb = 0; kb < nb; ++kb) {
-      const int k0 = kb * kChunk, nk = min(kChunk, A - k0);
-      __syncthreads();
-      load_kv(k0, nk);
-      __syncthreads();
-      logits_dp(nq, nk);
-      __syncthreads();
-      p_and_ds(q0, nq, k0, nk);
-      __syncthreads();
-      accumulate(nq, nk, kb == 0, ps, kChunk, 1, vs, dps, kChunk, 1, ks);
-    }
-    for (int idx = tid; idx < nq * n4; idx += NT) {
-      const int i = idx / n4, c = (idx - i * n4) * 4;
-      const float4 o = *reinterpret_cast<const float4*>(acc1 + i * ld + c);
-      const float4 dq = *reinterpret_cast<const float4*>(acc2 + i * ld + c);
-      store4(attn + (tok0 + q0 + i) * D + h0 + c, c, hd, o);
-      const size_t at = (tok0 + q0 + i) * D3 + h0 + c;
-      store4(dqkv + at, c, hd, dq, scale);
-      if (kBf16) store4(dqkv_c + at, c, hd, dq, scale);
+    const int q0 = qb * kTile, nq = min(kTile, A - q0);
+    for (int oc = 0; oc < ncc; ++oc) {
+      const int c0 = oc * cwmax, cw = min(cwmax, hd - c0), n4 = padded_head_dim(cw) / 4;
+      for (int kb = 0; kb < nb; ++kb) {
+        const int k0 = kb * kTile, nk = min(kTile, A - k0);
+        logits_dp(q0, nq, k0, nk);
+        p_and_ds(nq, nk);
+        if (oc != ncc - 1) load_kv(k0, nk, c0, cw);  // the logits left the last chunk
+        __syncthreads();
+        accumulate(nq, nk, n4, kb == 0, ps, kTile, 1, vs, dps, kTile, 1, ks);
+      }
+      for (int idx = tid; idx < nq * n4; idx += NT) {
+        const int i = idx / n4, c = (idx - i * n4) * 4;
+        const float4 o = *reinterpret_cast<const float4*>(acc1 + i * ld + c);
+        const float4 dq = *reinterpret_cast<const float4*>(acc2 + i * ld + c);
+        store4(attn + (tok0 + q0 + i) * D + h0 + c0 + c, c, cw, o);
+        const size_t at = (tok0 + q0 + i) * D3 + h0 + c0 + c;
+        store4(dqkv + at, c, cw, dq, scale);
+        if (kBf16) store4(dqkv_c + at, c, cw, dq, scale);
+      }
     }
   }
 
   // pass 3, key side: dv = P_c^T da and dk = dS^T (q x scale)
   for (int kb = 0; kb < nb; ++kb) {
-    const int k0 = kb * kChunk, nk = min(kChunk, A - k0);
-    __syncthreads();
-    load_kv(k0, nk);
-    for (int qb = 0; qb < nb; ++qb) {
-      const int q0 = qb * kChunk, nq = min(kChunk, A - q0);
-      __syncthreads();
-      load_q(q0, nq);
-      __syncthreads();
-      logits_dp(nq, nk);
-      __syncthreads();
-      p_and_ds(q0, nq, k0, nk);
-      __syncthreads();
-      accumulate(nk, nq, qb == 0, ps, 1, kChunk, das, dps, 1, kChunk, qs);
-    }
-    for (int idx = tid; idx < nk * n4; idx += NT) {
-      const int j = idx / n4, c = (idx - j * n4) * 4;
-      const float4 dv = *reinterpret_cast<const float4*>(acc1 + j * ld + c);
-      const float4 dk = *reinterpret_cast<const float4*>(acc2 + j * ld + c);
-      const size_t at = (tok0 + k0 + j) * D3 + h0 + c;
-      store4(dqkv + at + D, c, hd, dk);
-      store4(dqkv + at + 2 * D, c, hd, dv);
-      if (kBf16) {
-        store4(dqkv_c + at + D, c, hd, dk);
-        store4(dqkv_c + at + 2 * D, c, hd, dv);
+    const int k0 = kb * kTile, nk = min(kTile, A - k0);
+    for (int oc = 0; oc < ncc; ++oc) {
+      const int c0 = oc * cwmax, cw = min(cwmax, hd - c0), n4 = padded_head_dim(cw) / 4;
+      for (int qb = 0; qb < nb; ++qb) {
+        const int q0 = qb * kTile, nq = min(kTile, A - q0);
+        logits_dp(q0, nq, k0, nk);
+        p_and_ds(nq, nk);
+        if (oc != ncc - 1) load_q(q0, nq, c0, cw);
+        __syncthreads();
+        accumulate(nk, nq, n4, qb == 0, ps, 1, kTile, das, dps, 1, kTile, qs);
+      }
+      for (int idx = tid; idx < nk * n4; idx += NT) {
+        const int j = idx / n4, c = (idx - j * n4) * 4;
+        const float4 dv = *reinterpret_cast<const float4*>(acc1 + j * ld + c);
+        const float4 dk = *reinterpret_cast<const float4*>(acc2 + j * ld + c);
+        const size_t at = (tok0 + k0 + j) * D3 + h0 + c0 + c;
+        store4(dqkv + at + D, c, cw, dk);
+        store4(dqkv + at + 2 * D, c, cw, dv);
+        if (kBf16) {
+          store4(dqkv_c + at + D, c, cw, dk);
+          store4(dqkv_c + at + 2 * D, c, cw, dv);
+        }
       }
     }
   }
@@ -575,14 +615,15 @@ size_t mma_smem_bytes(int A, int hd) {
   const int a16 = pad16(A);
   return sizeof(bf16) * (4 * a16 * (hd + 8) + 2 * a16 * (a16 + 8));
 }
-size_t chunked_smem_bytes(int hd) {
-  return sizeof(float) * (6 * kChunk * row_pitch(hd) + 2 * kChunk * kChunk + 3 * kMaxA) + kMaxA;
+size_t tiled_smem_bytes(int hd) {
+  return sizeof(float) * (6 * kTile * (col_chunk(hd) + 4) + 2 * kTile * kTile + 3 * kTile) +
+         kTile;
 }
 
 template <typename T>
 cudaError_t launch_attention_backward(const T* qkv, const T* da, const unsigned char* mask,
-                                      float* dqkv, T* dqkv_c, T* attn, int rows, int A, int D,
-                                      int H, float scale, cudaStream_t stream) {
+                                      float* dqkv, T* dqkv_c, T* attn, float* stats, int rows,
+                                      int A, int D, int H, float scale, cudaStream_t stream) {
   const int hd = D / H;
   const dim3 grid(H, rows);
   cudaError_t err;
@@ -598,20 +639,21 @@ cudaError_t launch_attention_backward(const T* qkv, const T* da, const unsigned 
       return cudaGetLastError();
     }
   }
-  if (A <= 64) {
+  if (resident_attention(A, hd)) {
     static unsigned smem_set = 0;
     err = tc::allow_smem(reinterpret_cast<const void*>(attention_backward_kernel<T>),
-                         static_cast<int>(resident_smem_bytes(64, kMaxHeadDim)), smem_set);
+                         static_cast<int>(resident_smem_bytes(kResidentA, kResidentHeadDim)),
+                         smem_set);
     if (err != cudaSuccess) return err;
     attention_backward_kernel<T><<<grid, kThreads, resident_smem_bytes(A, hd), stream>>>(
         qkv, da, mask, dqkv, dqkv_c, attn, A, D, H, scale);
   } else {
     static unsigned smem_set = 0;
-    err = tc::allow_smem(reinterpret_cast<const void*>(attention_backward_chunked_kernel<T>),
-                         static_cast<int>(chunked_smem_bytes(kMaxHeadDim)), smem_set);
+    err = tc::allow_smem(reinterpret_cast<const void*>(attention_backward_tiled_kernel<T>),
+                         static_cast<int>(tiled_smem_bytes(kColChunk)), smem_set);
     if (err != cudaSuccess) return err;
-    attention_backward_chunked_kernel<T><<<grid, kThreadsChunk, chunked_smem_bytes(hd), stream>>>(
-        qkv, da, mask, dqkv, dqkv_c, attn, A, D, H, scale);
+    attention_backward_tiled_kernel<T><<<grid, kThreadsTiled, tiled_smem_bytes(hd), stream>>>(
+        qkv, da, mask, dqkv, dqkv_c, attn, stats, A, D, H, scale);
   }
   return cudaGetLastError();
 }
@@ -671,8 +713,9 @@ cudaError_t launch_bias_sums(const float* sums_qkv, int t_qkv, const float* g, i
 template <typename T>
 cudaError_t backward(const T* x, const unsigned char* mask, const T* g, const T* w_qkv,
                      const float* b_qkv, const T* w_out, int w_out_t, float* dx, float* dw_qkv,
-                     float* dw_out, T* qkv, T* da, float* dqkv, T* dqkv_c, T* attn, int rows,
-                     int A, int D, int H, float scale, float scale_c, cudaStream_t s) {
+                     float* dw_out, T* qkv, T* da, float* dqkv, T* dqkv_c, T* attn,
+                     float* stats, int rows, int A, int D, int H, float scale, float scale_c,
+                     cudaStream_t s) {
   constexpr int kBf16 = std::is_same<T, bf16>::value;
   const int tokens = rows * A;
   const tc::Epilogue none{nullptr, 0, 1.f, 0};
@@ -683,7 +726,8 @@ cudaError_t backward(const T* x, const unsigned char* mask, const T* g, const T*
   err = w_out_t ? tc::gemm<T, T, false, false>(g, w_out, da, tokens, D, D, none, s)
                 : tc::gemm<T, T, false, true>(g, w_out, da, tokens, D, D, none, s);
   if (err != cudaSuccess) return err;
-  err = launch_attention_backward<T>(qkv, da, mask, dqkv, dqkv_c, attn, rows, A, D, H, scale, s);
+  err = launch_attention_backward<T>(qkv, da, mask, dqkv, dqkv_c, attn, stats, rows, A, D, H,
+                                     scale, s);
   if (err != cudaSuccess) return err;
   err = tc::gemm<T, float, false, true>(dqkv_c, w_qkv, dx, tokens, D, 3 * D, none, s);
   if (err != cudaSuccess) return err;
@@ -705,17 +749,17 @@ cudaError_t backward(const T* x, const unsigned char* mask, const T* g, const T*
 // (rows*A*D), dqkv_c (rows*A*3D; unused in f32 mode, where dqkv serves),
 // attn (rows*A*D); in bf16 mode also x_c, g_c (rows*A*D), w_qkv_c (D*3D),
 // w_out_c (D*D); always dqkv (rows*A*3D: per token, or per row in the
-// tensor-core case) and partial (16*4D) f32. Takes 1 <= A <= 256,
-// D / num_heads <= 128 and D % 8 == 0. Returns the first cudaError_t of its
+// tensor-core case), partial (16*4D) and stats (rows*A*num_heads*3: the
+// tiled attention's per-query softmax statistics) f32. Takes any A >= 1 and
+// any D that num_heads divides. Returns the first cudaError_t of its
 // launches (0 on success); nothing is launched for bad sizes.
 extern "C" int fused_graph_attention_backward(
     const void* x, const void* mask, const void* g, const void* w_qkv, const void* b_qkv,
     const void* w_out, void* dx, void* dw_qkv, void* db_qkv, void* dw_out, void* db_out,
     void* x_c, void* g_c, void* w_qkv_c, void* w_out_c, void* qkv, void* da, void* dqkv,
-    void* dqkv_c, void* attn, void* partial, int rows, int A, int D, int num_heads, int use_bf16,
-    int w_out_t, float scale, float scale_c, void* stream) {
-  if (rows < 0 || A < 1 || A > kMaxA || num_heads < 1 || D < 8 || D % num_heads != 0 ||
-      D / num_heads > kMaxHeadDim || D % 8 != 0)
+    void* dqkv_c, void* attn, void* partial, void* stats, int rows, int A, int D, int num_heads,
+    int use_bf16, int w_out_t, float scale, float scale_c, void* stream) {
+  if (rows < 0 || A < 1 || num_heads < 1 || D < 1 || D % num_heads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* m = static_cast<const unsigned char*>(mask);
   const auto* bq = static_cast<const float*>(b_qkv);
@@ -739,14 +783,15 @@ extern "C" int fused_graph_attention_backward(
                          static_cast<const bf16*>(w_qkv_c), bq,
                          static_cast<const bf16*>(w_out_c), w_out_t, dxf, dwq, dwo,
                          static_cast<bf16*>(qkv), static_cast<bf16*>(da), dq,
-                         static_cast<bf16*>(dqkv_c), static_cast<bf16*>(attn), rows, A, D,
-                         num_heads, scale, scale_c, s);
+                         static_cast<bf16*>(dqkv_c), static_cast<bf16*>(attn),
+                         static_cast<float*>(stats), rows, A, D, num_heads, scale, scale_c, s);
   } else if (rows > 0) {
     err = backward<float>(static_cast<const float*>(x), m, static_cast<const float*>(g),
                           static_cast<const float*>(w_qkv), bq,
                           static_cast<const float*>(w_out), w_out_t, dxf, dwq, dwo,
                           static_cast<float*>(qkv), static_cast<float*>(da), dq, dq,
-                          static_cast<float*>(attn), rows, A, D, num_heads, scale, scale_c, s);
+                          static_cast<float*>(attn), static_cast<float*>(stats), rows, A, D,
+                          num_heads, scale, scale_c, s);
   } else {  // no token: the weight gradients are 0
     err = cudaMemsetAsync(dwq, 0, sizeof(float) * 3L * D * D, s);
     if (err == cudaSuccess) err = cudaMemsetAsync(dwo, 0, sizeof(float) * D * D, s);

@@ -10,7 +10,7 @@
 // with no projections. q, k and v are f32 or bf16 (read as such, computed in
 // f32, as the TPU kernel casts them); the output is f32. A row with no valid
 // key has a zero output (the TPU kernel spread its attention over its
-// packing strip). Any A >= 1 and any head dim up to 256.
+// packing strip). Any A >= 1 and any head dim.
 //
 // What bounds it: at the edges/s bench shape (rows = 4096, A = 20, D = 512,
 // 8 heads, f32) the kernel reads q, k, v and writes out, 671 MB, against 3.4
@@ -49,6 +49,14 @@
 // keeps a lane's P v accumulators in registers: T = 5 (Tq = 3, 2 float4
 // chunks) up to head dim 64, T = 4 (Tq = 2, 4 chunks) up to 128, T = 2
 // (Tq = 1, 8 chunks) up to 256.
+// Head dims past 256 (the kSplit variants, T = 2) are cut into column
+// chunks of 256: a unit is then (row, head, query tile, output column
+// chunk), and each key tile takes one step per column chunk, which stages
+// that chunk of q and k and adds its part of each logit to the lane's
+// tile in registers; the last of them also stages the output chunk of v,
+// and the softmax and P v run there, as for a head of up to 256. The logits
+// are recomputed for each output chunk; the parts are added in chunk order,
+// so two runs still give the same bits.
 // bf16 q, k and v are staged as bf16 by the same 16-byte copies (head dim a
 // multiple of 8) and converted to f32 as they are read. Inputs that cannot
 // take the 16-byte copies (a head dim that is not a multiple of 4, or 8 in
@@ -68,7 +76,7 @@ namespace {
 constexpr int kWarps = 2;  // warps a block, sharing one unit's stages
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;  // the next step's copies fly while one computes
-constexpr int kMaxHeadDim = 256;
+constexpr int kMaxChunkDim = 256;  // head dims past this are split
 constexpr int kPSlot = 8;         // floats per (key, query group) in P
 constexpr int kSmemBudget = 232448;  // bytes of shared memory a block may use
 
@@ -94,8 +102,10 @@ struct Params {
   float* out;
   int A, D, hd, H;
   int bf16;     // inputs are bf16 (read by the plain-load mode)
-  int hdp;      // head dim padded to a multiple of 4 (the staged width)
-  int nch;      // 16-byte chunks of a staged head, hdp / 4
+  int hdp;      // head dim padded to a multiple of 4
+  int cw;       // columns of a staged chunk: hdp, or 256 when split
+  int ncc;      // column chunks, ceil(hd / cw) (1 unless split)
+  int nch;      // 16-byte chunks of a staged head, hdp / 4 (unsplit)
   int cpl;      // chunks a lane accumulates in P v, ceil(nch / 8)
   int qtile;    // queries of a unit, 4 Tq kWarps
   int ktile;    // keys of a step, 4 T
@@ -103,21 +113,33 @@ struct Params {
   int krows;    // stage rows for keys (k, and again v), min(ktile, A)
   int nqt;      // query tiles per row
   int nkt;      // key tiles per unit (steps)
-  int units;    // rows x H x nqt
+  int units;    // rows x H x nqt x ncc
   int Wp;       // stage row stride (elements), 128 bytes or a multiple
   int stage_bytes;  // (qrows + 2 krows) rows of Wp elements
   float scale2;     // log2(e) / sqrt(hd)
 };
 
+// A step: key tile kt of a unit and, when split, its column chunk sub
+// (q and k columns [sub cw, ..)); oc is the unit's output column chunk (v
+// and the output, columns [oc cw, ..)). Unsplit, sub = oc = 0 and a chunk
+// is the whole head.
 struct Step {
   int row, head, q0, qn, k0, kn;
-  bool first, last;
+  int sub, oc;
+  int wqk, wv;  // real columns of this step's q and k chunk and of v's
+  bool first, last, last_sub;
 };
 
-__device__ __forceinline__ Step decode(const Params& p, int unit, int kt) {
+template <bool kSplit>
+__device__ __forceinline__ Step decode(const Params& p, int unit, int s) {
   Step st;
-  const int qt = unit % p.nqt;
-  const int rh = unit / p.nqt;
+  const int ncc = kSplit ? p.ncc : 1;
+  const int kt = kSplit ? s / ncc : s;
+  st.sub = kSplit ? s - kt * ncc : 0;
+  st.oc = kSplit ? unit % ncc : 0;
+  const int u = kSplit ? unit / ncc : unit;
+  const int qt = u % p.nqt;
+  const int rh = u / p.nqt;
   st.head = rh % p.H;
   st.row = rh / p.H;
   st.q0 = qt * p.qtile;
@@ -126,6 +148,9 @@ __device__ __forceinline__ Step decode(const Params& p, int unit, int kt) {
   st.kn = min(p.ktile, p.A - st.k0);
   st.first = kt == 0;
   st.last = kt == p.nkt - 1;
+  st.last_sub = st.sub == ncc - 1;
+  st.wqk = kSplit ? min(p.cw, p.hd - st.sub * p.cw) : p.hd;
+  st.wv = kSplit ? min(p.cw, p.hd - st.oc * p.cw) : p.hd;
   return st;
 }
 
@@ -184,19 +209,22 @@ __device__ __forceinline__ float4 load4(const Elem<kMode>* e) {
 }
 
 // Stage rows [0, qrows) hold the unit's queries, [qrows, qrows + krows) the
-// step's keys' k and the next krows their v, hdp features each; rows past
-// qn or kn are not filled and never reach a result.
-template <int kMode, int T>
+// step's keys' k and the next krows their v, hdp features each (split: the
+// step's column chunk of q and k, and v's output chunk on the last step of
+// a key tile only); rows past qn or kn are not filled and never reach a
+// result.
+template <int kMode, int T, bool kSplit>
 __device__ __forceinline__ void issue_step(const Params& p, Elem<kMode>* stage, const Step& st,
                                            int tid) {
   using E = Elem<kMode>;
   const size_t head0 = static_cast<size_t>(st.head) * p.hd;
+  const int regions = kSplit && !st.last_sub ? 2 : 3;
   if constexpr (kMode != kPlain) {
     // 16-byte copies, 4 f32 or 8 bf16 features each, region by region; a
     // thread's (row, copy) pairs advance by kThreads copies, no division
     constexpr int kPer = kMode == kBf16Vec ? 8 : 4;
-    const int per_row = p.hdp / kPer;
-    const int dr = kThreads / per_row, de = kThreads - dr * per_row;
+    int per_row = (kSplit ? st.wqk : p.hdp) / kPer;
+    int dr = kThreads / per_row, de = kThreads - dr * per_row;
     int r0 = 0, e0 = tid;
     while (e0 >= per_row) {
       e0 -= per_row;
@@ -204,10 +232,23 @@ __device__ __forceinline__ void issue_step(const Params& p, Elem<kMode>* stage, 
     }
 #pragma unroll
     for (int region = 0; region < 3; ++region) {
+      if (region >= regions) break;
+      if (kSplit && region == 2 && st.wv != st.wqk) {  // v's chunk has its own width
+        per_row = st.wv / kPer;
+        dr = kThreads / per_row;
+        de = kThreads - dr * per_row;
+        r0 = 0;
+        e0 = tid;
+        while (e0 >= per_row) {
+          e0 -= per_row;
+          ++r0;
+        }
+      }
       const int nr = region == 0 ? st.qn : st.kn;
       const int tok0 = region == 0 ? st.q0 : st.k0;
+      const int col0 = kSplit ? (region == 2 ? st.oc : st.sub) * p.cw : 0;
       const E* src = static_cast<const E*>(region == 0 ? p.q : (region == 1 ? p.k : p.v)) +
-                     (static_cast<size_t>(st.row) * p.A + tok0) * p.D + head0;
+                     (static_cast<size_t>(st.row) * p.A + tok0) * p.D + head0 + col0;
       const int sr0 = region == 0 ? 0 : p.qrows + (region - 1) * p.krows;
       int r = r0, e = e0;
 #pragma unroll 4
@@ -225,8 +266,9 @@ __device__ __forceinline__ void issue_step(const Params& p, Elem<kMode>* stage, 
     }
   } else {
     // plain loads, 8 in flight a thread, then the stores; padded features 0
-    const int nrows = p.qrows + 2 * p.krows;
-    const int total = nrows * p.hdp;
+    const int sw = kSplit ? p.cw : p.hdp;  // staged width
+    const int nrows = p.qrows + (regions - 1) * p.krows;
+    const int total = nrows * sw;
     for (int base = tid; base < total; base += kThreads * 8) {
       float val[8];
       int dst[8];
@@ -236,16 +278,18 @@ __device__ __forceinline__ void issue_step(const Params& p, Elem<kMode>* stage, 
         val[i] = 0.f;
         dst[i] = -1;
         if (idx < total) {
-          const int sr = idx / p.hdp;
-          const int e = idx - sr * p.hdp;
+          const int sr = idx / sw;
+          const int e = idx - sr * sw;
           const int region = sr < p.qrows ? 0 : (sr < p.qrows + p.krows ? 1 : 2);
           const int r = region == 0 ? sr : sr - p.qrows - (region - 1) * p.krows;
           if (r < (region == 0 ? st.qn : st.kn)) {
             const int tok = (region == 0 ? st.q0 : st.k0) + r;
-            const size_t off = (static_cast<size_t>(st.row) * p.A + tok) * p.D + head0 + e;
+            const int col0 = kSplit ? (region == 2 ? st.oc : st.sub) * p.cw : 0;
+            const size_t off =
+                (static_cast<size_t>(st.row) * p.A + tok) * p.D + head0 + col0 + e;
             const void* src = region == 0 ? p.q : (region == 1 ? p.k : p.v);
             dst[i] = sr * p.Wp + swz<kMode, T>(sr, e >> 2) + (e & 3);
-            if (e < p.hd)
+            if (e < (region == 2 ? st.wv : st.wqk))
               val[i] = p.bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(src)[off])
                               : static_cast<const float*>(src)[off];
           }
@@ -258,7 +302,7 @@ __device__ __forceinline__ void issue_step(const Params& p, Elem<kMode>* stage, 
   }
 }
 
-template <int kMode, int T>
+template <int kMode, int T, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 packed_masked_attention_kernel(const Params p) {
   constexpr int TQ = tile_queries(T);
@@ -284,22 +328,24 @@ packed_masked_attention_kernel(const Params p) {
 
   const int my_units =
       static_cast<int>(blockIdx.x) < p.units ? (p.units - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-  const int nsteps = my_units * p.nkt;
+  const int unit_steps = kSplit ? p.nkt * p.ncc : p.nkt;
+  const int nsteps = my_units * unit_steps;
 
   float acc[TQ][kCpl][4];
   float m[TQ], l[TQ];
+  float sc[TQ][T];  // the lane's logit tile (split: summed over a key tile's steps)
 
-  // the step s of this block: its unit and key tile
+  // the step s of this block: its unit, key tile and column chunk
   const auto step_of = [&](int s) {
-    const int u = s / p.nkt;
-    return decode(p, blockIdx.x + u * gridDim.x, s - u * p.nkt);
+    const int u = s / unit_steps;
+    return decode<kSplit>(p, blockIdx.x + u * gridDim.x, s - u * unit_steps);
   };
   const auto mask_of = [&](const Step& st) -> unsigned char {
     return lane < st.kn ? p.mask[static_cast<size_t>(st.row) * p.A + st.k0 + lane] : 0;
   };
 
   Step st_next = step_of(0);
-  if (nsteps > 0) issue_step<kMode, T>(p, stage_at(0), st_next, tid);
+  if (nsteps > 0) issue_step<kMode, T, kSplit>(p, stage_at(0), st_next, tid);
   cp_async_commit();
   unsigned char mv_next = nsteps > 0 ? mask_of(st_next) : 0;
 
@@ -311,11 +357,11 @@ packed_masked_attention_kernel(const Params p) {
     if (s + 1 < nsteps) {  // stage step s + 1 into the stage step s - 1 used
       st_next = step_of(s + 1);
       mv_next = mask_of(st_next);
-      issue_step<kMode, T>(p, stage_at((s + 1) % kStages), st_next, tid);
+      issue_step<kMode, T, kSplit>(p, stage_at((s + 1) % kStages), st_next, tid);
       cp_async_commit();
     }
     const E* stage = stage_at(s % kStages);
-    if (st.first) {
+    if (st.first && st.sub == 0) {
 #pragma unroll
       for (int a = 0; a < TQ; ++a) {
         m[a] = -INFINITY;
@@ -340,17 +386,19 @@ packed_masked_attention_kernel(const Params p) {
       const int j = kg * T + b;
       krow[b] = p.qrows + (j < p.krows ? j : 0);
     }
-    float sc[TQ][T];
+    if (st.sub == 0) {
 #pragma unroll
-    for (int a = 0; a < TQ; ++a)
+      for (int a = 0; a < TQ; ++a)
 #pragma unroll
-      for (int b = 0; b < T; ++b) sc[a][b] = 0.f;
+        for (int b = 0; b < T; ++b) sc[a][b] = 0.f;
+    }
     {
-      const int nhalf = (p.nch + 1) >> 1;
+      const int nch = kSplit ? (st.wqk + 3) >> 2 : p.nch;
+      const int nhalf = (nch + 1) >> 1;
 #pragma unroll 1
       for (int ci = 0; ci < nhalf; ++ci) {
         const int c = 2 * ci + fh;
-        if (c < p.nch) {
+        if (c < nch) {
           float4 qv[TQ], kv[T];
 #pragma unroll
           for (int a = 0; a < TQ; ++a) {
@@ -374,6 +422,7 @@ packed_masked_attention_kernel(const Params p) {
         }
       }
     }
+    if (kSplit && !st.last_sub) continue;  // the key tile's next column chunk
 #pragma unroll
     for (int a = 0; a < TQ; ++a)
 #pragma unroll
@@ -444,6 +493,7 @@ packed_masked_attention_kernel(const Params p) {
         if constexpr (TQ == 1) pj[0] = slot[0];
       };
       const int vrow0 = p.qrows + p.krows;
+      const int vnch = kSplit ? (st.wv + 3) >> 2 : p.nch;
       unsigned bits = vbits;
       constexpr int kPV = 4;  // valid keys a pass, their loads in flight together
       while (bits) {
@@ -461,7 +511,7 @@ packed_masked_attention_kernel(const Params p) {
 #pragma unroll
         for (int u = 0; u < kCpl; ++u) {
           const int c = fg + 8 * u;
-          if (u < p.cpl && c < p.nch) {
+          if (u < p.cpl && c < vnch) {
             float4 vk[kPV];
 #pragma unroll
             for (int t = 0; t < kPV; ++t) {
@@ -494,11 +544,12 @@ packed_masked_attention_kernel(const Params p) {
       if (i < st.qn) {
         const float inv = l[a] > 0.f ? 1.f / l[a] : 0.f;
         float* orow = p.out + (static_cast<size_t>(st.row) * p.A + st.q0 + i) * p.D +
-                      static_cast<size_t>(st.head) * p.hd;
+                      static_cast<size_t>(st.head) * p.hd + st.oc * p.cw;
+        const int vnch = kSplit ? (st.wv + 3) >> 2 : p.nch;
 #pragma unroll
         for (int u = 0; u < kCpl; ++u) {
           const int c = fg + 8 * u;
-          if (u < p.cpl && c < p.nch) {
+          if (u < p.cpl && c < vnch) {
             const float o0 = acc[a][u][0] * inv, o1 = acc[a][u][1] * inv,
                         o2 = acc[a][u][2] * inv, o3 = acc[a][u][3] * inv;
             if (p.hdp == p.hd) {  // 16-byte stores; out is 16-byte aligned
@@ -507,7 +558,7 @@ packed_masked_attention_kernel(const Params p) {
               const float o[4] = {o0, o1, o2, o3};
 #pragma unroll
               for (int e = 0; e < 4; ++e)
-                if (4 * c + e < p.hd) orow[4 * c + e] = o[e];
+                if (4 * c + e < st.wv) orow[4 * c + e] = o[e];
             }
           }
         }
@@ -518,9 +569,9 @@ packed_masked_attention_kernel(const Params p) {
 
 constexpr int kMaxDevices = 64;
 
-template <int kMode, int T>
+template <int kMode, int T, bool kSplit = false>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
-  auto kernel = packed_masked_attention_kernel<kMode, T>;
+  auto kernel = packed_masked_attention_kernel<kMode, T, kSplit>;
   // set once per device: the largest dynamic shared memory any call asks for
   static bool attr_set[kMaxDevices] = {};
   static int sms[kMaxDevices] = {};
@@ -560,6 +611,7 @@ static_assert(max_chunks(tile_queries(5)) >= 2 && max_chunks(tile_queries(4)) >=
 
 template <int kMode>
 cudaError_t launch_tile(int T, const Params& p, size_t smem, cudaStream_t s) {
+  if (p.ncc > 1) return launch<kMode, 2, true>(p, smem, s);
   switch (T) {
     case 2: return launch<kMode, 2>(p, smem, s);
     case 4: return launch<kMode, 4>(p, smem, s);
@@ -571,16 +623,15 @@ cudaError_t launch_tile(int T, const Params& p, size_t smem, cudaStream_t s) {
 
 // q, k, v (rows, A, D), f32 (bf16 == 0) or bf16 (bf16 != 0); mask (rows, A)
 // bytes, nonzero = valid key; out (rows, A, D) f32, 16-byte aligned. Takes
-// A >= 1, D a multiple of num_heads and D / num_heads <= 256. Returns a
-// cudaError_t (0 on success); nothing is launched for bad sizes.
+// A >= 1 and D a multiple of num_heads. Returns a cudaError_t (0 on
+// success); nothing is launched for bad sizes.
 extern "C" int packed_masked_attention_forward(const void* q, const void* k, const void* v,
                                                const void* mask, void* out, int rows, int A,
                                                int D, int num_heads, int bf16, void* stream) {
   const auto aligned = [](const void* ptr) {
     return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   };
-  if (rows < 0 || A < 1 || num_heads < 1 || D % num_heads != 0 ||
-      D / num_heads > kMaxHeadDim || !aligned(out))
+  if (rows < 0 || A < 1 || num_heads < 1 || D < 1 || D % num_heads != 0 || !aligned(out))
     return static_cast<int>(cudaErrorInvalidValue);
   if (rows == 0) return 0;
   const int hd = D / num_heads;
@@ -599,8 +650,10 @@ extern "C" int packed_masked_attention_forward(const void* q, const void* k, con
   p.H = num_heads;
   p.bf16 = bf16 != 0;
   p.hdp = (hd + 3) / 4 * 4;
+  p.cw = p.hdp <= kMaxChunkDim ? p.hdp : kMaxChunkDim;
+  p.ncc = (hd + p.cw - 1) / p.cw;
   p.nch = p.hdp / 4;
-  p.cpl = (p.nch + 7) / 8;
+  p.cpl = (p.cw / 4 + 7) / 8;
   const int T = p.cpl <= 2 ? 5 : (p.cpl <= 4 ? 4 : 2);
   p.ktile = 4 * T;
   p.qtile = 4 * kWarps * tile_queries(T);
@@ -608,13 +661,13 @@ extern "C" int packed_masked_attention_forward(const void* q, const void* k, con
   p.krows = p.ktile < A ? p.ktile : A;
   p.nqt = (A + p.qtile - 1) / p.qtile;
   p.nkt = (A + p.ktile - 1) / p.ktile;
-  const long long units = static_cast<long long>(rows) * num_heads * p.nqt;
+  const long long units = static_cast<long long>(rows) * num_heads * p.nqt * p.ncc;
   if (units > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   p.units = static_cast<int>(units);
   // rows of whole 128-byte lines, so the swizzle stays inside a row
   const int esize = mode == kBf16Vec ? 2 : 4;
   const int per_line = 128 / esize;
-  p.Wp = (p.hdp + per_line - 1) / per_line * per_line;
+  p.Wp = (p.cw + per_line - 1) / per_line * per_line;
   p.stage_bytes = (p.qrows + 2 * p.krows) * p.Wp * esize;
   p.scale2 = 1.4426950408889634f / sqrtf(static_cast<float>(hd));
   const size_t smem = static_cast<size_t>(kStages) * p.stage_bytes +

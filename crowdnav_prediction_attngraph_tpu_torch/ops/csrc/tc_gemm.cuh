@@ -20,9 +20,12 @@
 // the token count, split their K loop over the block's four warp groups and
 // add the groups' sums in group order. Two runs give the same bits.
 //
-// Requirements (checked by the callers): the column counts of the stored
-// operands (K or M or N, whichever is contiguous) are multiples of 8, and
-// the base pointers are 16-byte aligned.
+// Any sizes: an operand whose stored column count (K or M or N, whichever
+// is contiguous) is a multiple of 16 bytes is staged by 16-byte cp.async
+// copies, any other by predicated element loads, zero-filled past its edge
+// (the same tile, so the same sums in the same order); an output whose row is
+// not a multiple of 16 bytes is stored element by element. Base pointers are
+// 16-byte aligned (the callers' buffers).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -136,13 +139,25 @@ struct TileLayout {
 };
 
 // Copy one tile (rows r0.., cols c0.. of a row-major (nrows, ncols) array
-// with leading dimension ld) into shared memory, zero-filling outside.
+// with leading dimension ld) into shared memory, zero-filling outside: by
+// 16-byte cp.async copies when every row starts on 16 bytes (ld a multiple
+// of the copy), else by element loads and stores (visible to the block
+// after the barrier that precedes the stage's use, like the copies).
 template <typename T, class L, int NT>
 __device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int ld, int r0,
                                           int c0, int nrows, int ncols, int tid) {
   constexpr int CH = Stage<T>::kChunk;
   constexpr int kPerRow = L::kCols / CH;
   constexpr int kTotal = L::kRows * kPerRow;
+  if (ld % CH != 0) {
+    for (int i = tid; i < L::kRows * L::kCols; i += NT) {
+      const int r = i / L::kCols, c = i - r * L::kCols;
+      const bool ok = (r0 + r < nrows) && (c0 + c < ncols);
+      dst[r * L::kPitch + c] =
+          ok ? src[static_cast<size_t>(r0 + r) * ld + (c0 + c)] : from_float<T>(0.f);
+    }
+    return;
+  }
   for (int i = tid; i < kTotal; i += NT) {
     const int r = i / kPerRow;
     const int c = (i - r * kPerRow) * CH;
@@ -178,8 +193,9 @@ __device__ __forceinline__ void group_barrier(int id, int nthreads) {
 
 // The output tile through shared memory: put(tile, pitch) writes each
 // thread's values into the BM x BN tile between the two barriers that this
-// calls, then the tile goes out as 16-byte row pieces (N is a multiple of 8,
-// C 16-byte aligned), rows and columns past M and N left out.
+// calls, then the tile goes out as 16-byte row pieces (C 16-byte aligned;
+// element by element when a row of N is not a multiple of 16 bytes), rows
+// and columns past M and N left out.
 template <typename OutT, int BM, int BN, int NT, class Put>
 __device__ __forceinline__ void store_tile(OutT* __restrict__ C, int M, int N, int m0, int n0,
                                            unsigned char* smem, int barrier, int tid, Put put) {
@@ -188,6 +204,14 @@ __device__ __forceinline__ void store_tile(OutT* __restrict__ C, int M, int N, i
   group_barrier(barrier, NT);  // every warp is done with the operand ring
   put(cs, kPitch);
   group_barrier(barrier, NT);
+  if (N % V != 0) {
+    for (int i = tid; i < BM * BN; i += NT) {
+      const int r = i / BN, c = i - r * BN;
+      const int m = m0 + r, n = n0 + c;
+      if (m < M && n < N) C[static_cast<size_t>(m) * N + n] = cs[r * kPitch + c];
+    }
+    return;
+  }
   for (int i = tid; i < BM * BN / V; i += NT) {
     const int r = i / (BN / V), c = (i - r * (BN / V)) * V;
     const int m = m0 + r, n = n0 + c;
@@ -330,9 +354,10 @@ gemm_kernel(Problem<T, OutT> p0, Problem<T, OutT> p1, int tiles0) {
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int r = wm + i * 16 + g + h * 8, c = wn + j * 8 + 2 * t;
-            const int n = min(n0 + c, N - 2);  // columns past N are not stored
-            const float v0 = epilogue_value(epi, n, acc[i][j][2 * h]);
-            const float v1 = epilogue_value(epi, n + 1, acc[i][j][2 * h + 1]);
+            // columns past N are not stored (their bias index is clamped)
+            const int n = n0 + c;
+            const float v0 = epilogue_value(epi, min(n, N - 1), acc[i][j][2 * h]);
+            const float v1 = epilogue_value(epi, min(n + 1, N - 1), acc[i][j][2 * h + 1]);
             if constexpr (std::is_same<OutT, bf16>::value)
               *reinterpret_cast<__nv_bfloat162*>(cs + r * pitch + c) = __floats2bfloat162_rn(v0, v1);
             else
@@ -463,8 +488,8 @@ cudaError_t gemm_pair_long_k(const Problem<T, float>& p0, const Problem<T, float
 
 // Writes bf16 copies of up to four f32 arrays in one launch (K1's and K2's
 // operands that arrive in f32: x, g and the weights), 8 values a thread at
-// a time: two 16-byte loads, one 16-byte store. Each n is a multiple of 8
-// and each pointer 16-byte aligned.
+// a time: two 16-byte loads, one 16-byte store; an array's last n % 8
+// values one at a time. Each pointer is 16-byte aligned.
 struct ConvertJob {
   const float* src[4];
   bf16* dst[4];
@@ -472,7 +497,11 @@ struct ConvertJob {
 };
 
 __device__ __forceinline__ void convert8(const float* __restrict__ src, bf16* __restrict__ dst,
-                                         long i) {
+                                         long i, long n) {
+  if (8 * i + 8 > n) {
+    for (long e = 8 * i; e < n; ++e) dst[e] = __float2bfloat16(src[e]);
+    return;
+  }
   const float4 a = reinterpret_cast<const float4*>(src)[2 * i];
   const float4 b = reinterpret_cast<const float4*>(src)[2 * i + 1];
   __nv_bfloat162 o[4] = {__floats2bfloat162_rn(a.x, a.y), __floats2bfloat162_rn(a.z, a.w),
@@ -481,23 +510,25 @@ __device__ __forceinline__ void convert8(const float* __restrict__ src, bf16* __
 }
 
 __global__ void __launch_bounds__(256) convert_kernel(ConvertJob job) {
-  const long n0 = job.n[0] / 8, n1 = job.n[1] / 8, n2 = job.n[2] / 8, n3 = job.n[3] / 8;
+  const long n0 = (job.n[0] + 7) / 8, n1 = (job.n[1] + 7) / 8, n2 = (job.n[2] + 7) / 8,
+             n3 = (job.n[3] + 7) / 8;
   const long total = n0 + n1 + n2 + n3;
   for (long i = blockIdx.x * 256L + threadIdx.x; i < total; i += 256L * gridDim.x) {
     // constant indices into the job, so it stays in the parameter space
     if (i < n0)
-      convert8(job.src[0], job.dst[0], i);
+      convert8(job.src[0], job.dst[0], i, job.n[0]);
     else if (i < n0 + n1)
-      convert8(job.src[1], job.dst[1], i - n0);
+      convert8(job.src[1], job.dst[1], i - n0, job.n[1]);
     else if (i < n0 + n1 + n2)
-      convert8(job.src[2], job.dst[2], i - n0 - n1);
+      convert8(job.src[2], job.dst[2], i - n0 - n1, job.n[2]);
     else
-      convert8(job.src[3], job.dst[3], i - n0 - n1 - n2);
+      convert8(job.src[3], job.dst[3], i - n0 - n1 - n2, job.n[3]);
   }
 }
 
 inline cudaError_t convert(const ConvertJob& job, cudaStream_t stream) {
-  const long total = (job.n[0] + job.n[1] + job.n[2] + job.n[3]) / 8;
+  long total = 0;
+  for (int a = 0; a < 4; ++a) total += (job.n[a] + 7) / 8;
   if (total == 0) return cudaSuccess;
   long blocks = (total + 255) / 256;
   if (blocks > 132 * 8) blocks = 132 * 8;

@@ -176,29 +176,15 @@ def _check(x, mask, num_heads, compute_dtype, dtypes=(torch.float32,),
                         f"got {compute_dtype}")
 
 
-# What the CUDA kernels take. K1 and K2 (tiled products plus per-(row, head)
-# attention): 1 <= A <= 256, head dim <= 128 and D % 8 == 0, for the 16-byte
-# copies of the products' tiles. K3 (key tiles with an online softmax): any
-# A >= 1 and head dim <= 256.
-K12_LIMITS = {"max_a": 256, "max_hd": 128, "d_multiple": 8}
-K3_LIMITS = {"max_a": None, "max_hd": 256, "d_multiple": 1}
-
-
-def _check_kernel(x, num_heads, tensors, max_a, max_hd, d_multiple):
-    """What a CUDA kernel takes: 1 <= A <= ``max_a`` (no upper bound for
-    None), head dim <= ``max_hd``, D a multiple of ``d_multiple``, the
-    ``tensors`` given contiguous (K1's and K2's w_out is laid out by the
-    wrappers)."""
+def _check_kernel(x, tensors):
+    """What a CUDA kernel takes besides :func:`_check`'s shapes: a CUDA
+    device, A >= 1 (as the JAX kernels; any head dim and any D that
+    num_heads divides) and the ``tensors`` given contiguous (K1's and K2's
+    w_out is laid out by the wrappers)."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    rows, A, D = x.shape
-    if (A < 1 or (max_a is not None and A > max_a)
-            or D // num_heads > max_hd or D % d_multiple):
-        multiple = f", D % {d_multiple} == 0" if d_multiple > 1 else ""
-        a_range = "A >= 1" if max_a is None else f"1 <= A <= {max_a}"
-        raise ValueError(f"the kernel takes {a_range}, head dim <= "
-                         f"{max_hd}{multiple}; got A={A}, D={D}, "
-                         f"heads={num_heads}")
+    if x.shape[1] < 1:
+        raise ValueError(f"the kernels take A >= 1, got A={x.shape[1]}")
     for name, t in tensors.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -282,10 +268,10 @@ def fused_graph_attention(x, mask, w_qkv, b_qkv, w_out, b_out,
     """K1 forward: (rows, A, D) -> (rows, A, D) float32, differentiable in
     x and the weights through :class:`FusedGraphAttention`.
 
-    CUDA tensors launch the Hopper kernels (``K12_LIMITS``: A <= 256,
-    D / num_heads <= 128, D % 8 == 0; all contiguous but w_out, which may be
-    any (D, D) view, such as an nn.Linear weight's ``.t()``); CPU tensors
-    run the plain versions."""
+    CUDA tensors launch the Hopper kernels (any A >= 1 and any D that
+    num_heads divides, as the JAX kernel; all contiguous but w_out, which
+    may be any (D, D) view, such as an nn.Linear weight's ``.t()``); CPU
+    tensors run the plain versions."""
     _check(x, mask, num_heads, compute_dtype, w_qkv=w_qkv, b_qkv=b_qkv,
            w_out=w_out, b_out=b_out)
     return FusedGraphAttention.apply(x, mask, w_qkv, b_qkv, w_out, b_out,
@@ -297,8 +283,8 @@ fused_graph_attention.launches = 0
 
 def _launch_forward(x, mask, w_qkv, b_qkv, w_out, b_out, num_heads,
                     compute_dtype):
-    _check_kernel(x, num_heads, {"x": x, "mask": mask, "w_qkv": w_qkv,
-                                 "b_qkv": b_qkv, "b_out": b_out}, **K12_LIMITS)
+    _check_kernel(x, {"x": x, "mask": mask, "w_qkv": w_qkv, "b_qkv": b_qkv,
+                      "b_out": b_out})
     rows, A, D = x.shape
     tokens = rows * A
     bf16 = compute_dtype == torch.bfloat16
@@ -330,15 +316,15 @@ def fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
                                    num_heads: int,
                                    compute_dtype: torch.dtype = torch.bfloat16):
     """K2: (dx, dw_qkv, db_qkv, dw_out, db_out) of K1 for the output
-    cotangent ``g``. CUDA tensors launch the Hopper kernels (K1's limits);
+    cotangent ``g``. CUDA tensors launch the Hopper kernels (K1's shapes);
     CPU tensors run :func:`reference_fused_graph_attention_backward`."""
     _check(x, mask, num_heads, compute_dtype, w_qkv=w_qkv, b_qkv=b_qkv,
            w_out=w_out, g=g)
     if x.device.type == "cpu":
         return reference_fused_graph_attention_backward(
             x, mask, w_qkv, b_qkv, w_out, g, num_heads, compute_dtype)
-    _check_kernel(x, num_heads, {"x": x, "mask": mask, "w_qkv": w_qkv,
-                                 "b_qkv": b_qkv, "g": g}, **K12_LIMITS)
+    _check_kernel(x, {"x": x, "mask": mask, "w_qkv": w_qkv, "b_qkv": b_qkv,
+                      "g": g})
     rows, A, D = x.shape
     tokens = rows * A
     bf16 = compute_dtype == torch.bfloat16
@@ -354,16 +340,18 @@ def fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
     # bf16 copies of the f32 product operands (none in f32 mode); the
     # recomputed q|k|v, dattn, dq|dk|dv (f32 for the bias sums, and in the
     # compute dtype for the products; one buffer in f32 mode), the rounded
-    # attention output and the bias sums' slice partials
+    # attention output, the bias sums' slice partials and the tiled
+    # attention's per-query softmax statistics (3 a query and head)
     copies = ((tokens * D, cd), (tokens * D, cd), (3 * D * D, cd),
               (D * D, cd)) if bf16 else (None,) * 4
     buf, ptrs = _scratch(
         x.device, *copies, (tokens * 3 * D, cd), (tokens * D, cd),
         (tokens * 3 * D, fl), (tokens * 3 * D, cd) if bf16 else None,
-        (tokens * D, cd), (_BIAS_SLICES * 4 * D, fl))
+        (tokens * D, cd), (_BIAS_SLICES * 4 * D, fl),
+        (tokens * num_heads * 3, fl))
     scale, scale_c = _scales(D, num_heads, compute_dtype)
     fn = _kernel_fn(KERNEL_BWD, "fused_graph_attention_backward",
-                    [_P] * 21 + [_I] * 6 + [_F, _F])
+                    [_P] * 22 + [_I] * 6 + [_F, _F])
     with _on_device(x.device):
         rc = fn(*_ptrs(x, mask, g, w_qkv, b_qkv, w_out, dx, dw_qkv, db_qkv,
                        dw_out, db_out), *ptrs,
@@ -402,7 +390,7 @@ def reference_masked_attention(q, k, v, mask, num_heads: int):
 def packed_masked_attention(q, k, v, mask, num_heads: int):
     """K3: (rows, A, D) q, k, v, all f32 or all bf16, and a (rows, A) bool
     key mask -> (rows, A, D) f32. CUDA tensors launch the Hopper kernel (any
-    A >= 1, D / num_heads <= 256, all contiguous); CPU tensors run
+    A >= 1, any head dim, all contiguous); CPU tensors run
     :func:`reference_masked_attention`. It has no backward, as the JAX K3
     has none: with grad mode on, an input that requires grad raises."""
     _check(q, mask, num_heads, torch.float32,
@@ -413,8 +401,7 @@ def packed_masked_attention(q, k, v, mask, num_heads: int):
                            "require grad")
     if q.device.type == "cpu":
         return reference_masked_attention(q, k, v, mask, num_heads)
-    _check_kernel(q, num_heads, {"q": q, "k": k, "v": v, "mask": mask},
-                  **K3_LIMITS)
+    _check_kernel(q, {"q": q, "k": k, "v": v, "mask": mask})
     rows, A, D = q.shape
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     fn = _kernel_fn(KERNEL_ATTN, "packed_masked_attention_forward",

@@ -1,10 +1,19 @@
 """Evaluation CLI (JAX package ``test.py:62-179``; reference test.py:16-158).
 
-Loads a run's config snapshot and its weights, runs the seeded suite with
-the network policy and writes the reference metric lines to
-``<out-dir>/test/test_<step>.log`` (``--out-dir`` defaults to ``torch_eval``,
-so the model dir's committed log is never overwritten). The weights are, in
-this order:
+Runs the seeded suite and writes the reference metric lines to
+``<out-dir>/test/test_<step>.log``. The robot is the network policy
+(``--robot-policy network``, the default) or a scripted baseline
+(``orca``, ``social_force``). The config is the run's snapshot
+``<model-dir>/config.json``; a scripted run without one builds it from the
+flags (``--env-name``, ``--predict-method``, ``--human-num``,
+``--human-num-range``, ``--no-randomize-attributes``, and the PPO flags, as
+the JAX CLI does), and then ``--model-dir`` is only where its log goes.
+``--orca-stale-radii`` and ``--gst-matmul-dtype`` apply to either config.
+``--out-dir`` defaults to ``torch_eval`` (or, for a scripted run without a
+snapshot, ``--model-dir``), so a model dir's committed log is never
+overwritten; a scripted run's log is ``test_00000.log``.
+
+For the network policy the weights are, in this order:
 
 * ``--params`` (a params ``.npz``), the log named by ``--step``;
 * the run's own checkpoint ``<model-dir>/checkpoints/<step>.npz``, written
@@ -19,13 +28,17 @@ scored in its name.
   python -m crowdnav_prediction_attngraph_tpu_torch.test \\
       --model-dir trained_models/GST_predictor_rand_tpu_r5_selfgst \\
       --test-case-size 500
+  python -m crowdnav_prediction_attngraph_tpu_torch.test \\
+      --env-name CrowdSimVarNum --robot-policy orca --test-case-size 500
 
-Runs on ``cuda`` unless ``--device cpu`` is given.
+Runs on ``cuda`` unless ``--device cpu`` is given. ``--visualize``,
+``--test-case`` and ``--render-out`` are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import sys
@@ -33,7 +46,7 @@ import sys
 import torch
 
 from .algo import evaluation
-from .config import config_from_snapshot
+from .config import build_config, config_from_snapshot
 from .models.gst.predictor import load_gst
 from .models.policy import load_policy
 from .utils.checkpoint import latest_step
@@ -73,10 +86,33 @@ def resolve_params(model_dir: str, params=None, step=None, ckpt_step=None):
                      f"not {DEFAULT_MODEL_DIR}; pass the weights with --params")
 
 
-def main(argv=None):
+def _parser():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model-dir", required=True,
-                   help="run directory holding config.json")
+    p.add_argument("--model-dir", default=None,
+                   help="run directory holding config.json (required for "
+                        "the network policy)")
+    p.add_argument("--robot-policy", default="network",
+                   choices=["network", "orca", "social_force"])
+    p.add_argument("--env-name", default="CrowdSimVarNum",
+                   help="without a snapshot: the env of a scripted run")
+    p.add_argument("--predict-method", default="none")
+    p.add_argument("--human-num", type=int, default=20)
+    p.add_argument("--human-num-range", type=int, default=0)
+    p.add_argument("--num-processes", type=int, default=16)
+    p.add_argument("--num-steps", type=int, default=30)
+    p.add_argument("--num-env-steps", type=int, default=0)
+    p.add_argument("--lr", type=float, default=4e-5)
+    p.add_argument("--seed", type=int, default=425)
+    p.add_argument("--no-randomize-attributes", dest="randomize_attributes",
+                   action="store_false",
+                   help="fixed v_pref/radius humans (the reference's "
+                        "*_no_rand baseline configs)")
+    p.add_argument("--orca-stale-radii", action="store_true",
+                   help="emulate the reference ORCA robot's stale neighbour "
+                        "radii (OrcaConfig.stale_neighbor_radii)")
+    p.add_argument("--gst-matmul-dtype", default=None,
+                   choices=["f32", "bf16"],
+                   help="override the GST predictor's matmul dtype")
     p.add_argument("--params", default=None,
                    help="policy weights (.npz); default: the model dir's "
                         "checkpoint (see above)")
@@ -92,19 +128,52 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=None,
                    help="cases per lock-step batch (default: all at once)")
     p.add_argument("--device", default="cuda")
-    p.add_argument("--out-dir", default="torch_eval",
-                   help="log root, never the model dir (its committed log "
-                        "stays); the log goes to <out-dir>/test/test_<step>.log")
-    args = p.parse_args(argv)
+    p.add_argument("--out-dir", default=None,
+                   help="log root (default: torch_eval, or --model-dir for a "
+                        "scripted run without a snapshot); the log goes to "
+                        "<out-dir>/test/test_<step>.log")
+    return p
 
-    params, step = resolve_params(args.model_dir, args.params, args.step,
-                                  args.ckpt_step)
+
+def load_config(args):
+    """(config, whether it came from a snapshot): the model dir's snapshot,
+    else, for a scripted robot, the flags (JAX ``test.py:105-124``)."""
+    snapshot = args.model_dir and os.path.join(args.model_dir, "config.json")
+    if snapshot and os.path.exists(snapshot):
+        cfg, from_snapshot = config_from_snapshot(snapshot), True
+    elif args.robot_policy == "network":
+        raise SystemExit(f"no config snapshot at {snapshot or '--model-dir'}"
+                         " (required for the network policy)")
+    else:
+        cfg, from_snapshot = build_config(args), False
+    if args.orca_stale_radii:
+        cfg = cfg.replace(orca=dataclasses.replace(
+            cfg.orca, stale_neighbor_radii=True))
+    if args.gst_matmul_dtype:
+        cfg = cfg.replace(pred=dataclasses.replace(
+            cfg.pred, matmul_dtype=args.gst_matmul_dtype))
+    return cfg, from_snapshot
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    params, step = None, 0
+    if args.robot_policy == "network":
+        if not args.model_dir:
+            raise SystemExit("--model-dir is required for the network policy")
+        params, step = resolve_params(args.model_dir, args.params, args.step,
+                                      args.ckpt_step)
+    cfg, from_snapshot = load_config(args)
     device = resolve_device(args.device)
-    cfg = config_from_snapshot(os.path.join(args.model_dir, "config.json"))
-    policy = load_policy(cfg, params, device)
-    gst = load_gst(cfg.pred, args.gst_params, device)
+    policy = (load_policy(cfg, params, device) if params is not None
+              else None)
+    gst = (load_gst(cfg.pred, args.gst_params, device)
+           if cfg.sim.predict_method == "inferred" else None)
 
-    out_dir = os.path.join(args.out_dir, "test")
+    out_root = args.out_dir or (
+        args.model_dir if args.model_dir and not from_snapshot
+        else "torch_eval")
+    out_dir = os.path.join(out_root, "test")
     os.makedirs(out_dir, exist_ok=True)
     log_path = os.path.join(out_dir, f"test_{step:05d}.log")
     logger = logging.getLogger("crowdnav_prediction_attngraph_tpu_torch.test")
@@ -120,12 +189,16 @@ def main(argv=None):
     try:
         name = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "cpu")
-        print(f"[test] device {name}; weights {params} (step {step})",
-              flush=True)
+        robot = (f"weights {params} (step {step})" if policy is not None
+                 else f"scripted {args.robot_policy} robot")
+        print(f"[test] device {name}; {cfg.env_name} "
+              f"({cfg.sim.predict_method}, {cfg.sim.human_num} humans, "
+              f"range {cfg.sim.human_num_range}); {robot}", flush=True)
         results = evaluation.evaluate(
             cfg, policy, gst, test_size=args.test_case_size,
             batch_size=args.batch_size, device=device,
-            log=lambda m: print(m, flush=True))
+            log=lambda m: print(m, flush=True),
+            robot_policy=args.robot_policy)
         logger.info(evaluation.format_results(results))
         logger.info("Collision cases: " +
                     " ".join(str(x) for x in results["collision_cases"]))

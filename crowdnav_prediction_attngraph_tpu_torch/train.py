@@ -31,47 +31,12 @@ import torch
 
 from .algo import evaluation
 from .algo import ppo as ppo_mod
-from .config import Config, gst_config, pred_config, varnum_config
+from .config import build_config
 from .models.gst.predictor import load_gst
 from .models.policy import load_policy
 from .test import DEFAULT_GST_PARAMS
 from .utils import checkpoint as ckpt_util
 from .utils.device import resolve_device
-
-
-def build_config(args) -> Config:
-    """The run's config from the CLI flags (JAX ``train.py:43-85``)."""
-    if args.env_name == "CrowdSimVarNum":
-        cfg = varnum_config(human_num=args.human_num,
-                            human_num_range=args.human_num_range)
-    elif args.env_name == "CrowdSimPred":
-        cfg = pred_config(predict_method=args.predict_method,
-                          human_num=args.human_num,
-                          human_num_range=args.human_num_range)
-    elif args.env_name == "CrowdSimPredRealGST":
-        cfg = gst_config(human_num=args.human_num,
-                         human_num_range=args.human_num_range)
-    else:
-        raise ValueError(args.env_name)
-    cfg = cfg.replace(ppo=dataclasses.replace(
-        cfg.ppo, num_processes=args.num_processes, num_steps=args.num_steps,
-        num_env_steps=args.num_env_steps, lr=args.lr, seed=args.seed,
-        num_mini_batch=args.num_mini_batch, ppo_epoch=args.ppo_epoch,
-        entropy_coef=args.entropy_coef,
-        use_linear_lr_decay=args.use_linear_lr_decay))
-    if not args.randomize_attributes:
-        cfg = cfg.replace(env=dataclasses.replace(
-            cfg.env, randomize_attributes=False))
-    if args.kinematics:
-        cfg = cfg.replace(action_space=dataclasses.replace(
-            cfg.action_space, kinematics=args.kinematics))
-    if args.robot_v_pref:
-        cfg = cfg.replace(robot=dataclasses.replace(
-            cfg.robot, v_pref=args.robot_v_pref))
-    if args.gst_matmul_dtype:
-        cfg = cfg.replace(pred=dataclasses.replace(
-            cfg.pred, matmul_dtype=args.gst_matmul_dtype))
-    return cfg
 
 
 def _parser():

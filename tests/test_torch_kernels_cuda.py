@@ -18,11 +18,15 @@ why); an all-masked row's dx is exactly 0. Two runs give the same bits:
 the weight gradients are reduced in a fixed order, without atomics.
 
 K1 and K2 are held at A = 50, 64, 80 (past the single-chunk attention)
-and 256 (their limit), at D = 1024 / 8 heads (head dim 128, D > 512), and
-at head dims 65 and 48 (bf16 attention on CUDA cores and on the tensor
-cores off the paths' head dim);
-both refuse A = 257 and head dim 136. K1, like K2, gives the same bits on
-two runs: every sum runs in a fixed order, without atomics.
+and 256, at D = 1024 / 8 heads (head dim 128, D > 512), and at head dims
+65 and 48 (bf16 attention on CUDA cores and on the tensor cores off the
+paths' head dim); and, since their limits went, at A = 257 and 300 (the
+tiled attention), head dims 136 and 256 (column chunks of 128), and D = 100
+with 4 heads and D = 99 with 3 heads (rows that are not a multiple of 16
+bytes: the products' element loads). They take every shape the JAX kernels
+take and refuse only what the wrappers check (non-contiguous inputs). K1,
+like K2, gives the same bits on two runs: every sum runs in a fixed order,
+without atomics.
 
 K3 tolerance: atol 2e-5 (the JAX kernel's own bound against its reference,
 tests/test_pallas_attention.py:15-26), for f32 and for bf16 q, k, v (read as
@@ -32,7 +36,9 @@ a row whose first key tiles (keys 0-63, more than three tiles of 20) are all
 masked; masked keys' v at 1e6 changes no bit (they are skipped); two runs
 give the same bits. K3 is held at A = 1 to 300 (several key tiles, an online
 softmax), at head dims 48, 65 (the plain-load path, in f32 and bf16), 12
-(bf16 plain loads), 128 and 256 (its limit), and refuses head dim 257.
+(bf16 plain loads), 128 and 256, and past 256, where it splits the head
+into column chunks of 256: 257 (plain loads), 320 (f32 and bf16) and 512,
+also over several key tiles and with an all-masked row.
 """
 
 import math
@@ -92,8 +98,31 @@ def test_k1_matches_plain(cuda_device, rows, a, d, dtype, atol):
     assert torch.equal(got, again)
 
 
+# (rows, A, D, heads): what the kernels take since their limits went
+ANY_SHAPES = [(2, 257, D, HEADS), (2, 300, 256, 4), (3, 20, 1088, HEADS),
+              (3, 20, 1024, 4), (4, 70, 1088, HEADS), (3, 20, 100, 4),
+              (3, 20, 99, 3), (2, 257, 100, 4)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("a", [A, 80])
+@pytest.mark.parametrize("rows,a,d,heads", ANY_SHAPES)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 3e-4),
+                                        (torch.bfloat16, 3e-2)])
+def test_k1_matches_plain_any_shape(cuda_device, rows, a, d, heads, dtype,
+                                    atol):
+    args = k1_inputs(rows, a, rows + a + d, cuda_device, d)
+    before = fused_graph_attention.launches
+    got = fused_graph_attention(*args, heads, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert fused_graph_attention.launches == before + 1
+    expect = reference_fused_graph_attention(*args, heads, compute_dtype=dtype)
+    torch.testing.assert_close(got, expect, rtol=0, atol=atol)
+    assert torch.equal(got, fused_graph_attention(*args, heads,
+                                                  compute_dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [A, 80, 257])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_all_masked_row_isolation(cuda_device, dtype, a):
     args = k1_inputs(8, a, 1, cuda_device)
@@ -109,12 +138,15 @@ def test_k1_all_masked_row_isolation(cuda_device, dtype, a):
 
 @pytest.mark.cuda
 def test_k1_rejects_what_it_does_not_take(cuda_device):
-    args = k1_inputs(2, 257, 0, cuda_device)
-    with pytest.raises(ValueError):
-        fused_graph_attention(*args, HEADS)
-    args = k1_inputs(2, A, 0, cuda_device, 1088)     # head dim 136
-    with pytest.raises(ValueError):
-        fused_graph_attention(*args, HEADS)
+    """A = 257 and head dim 136, refused before the limits went, now hold
+    their result; a non-contiguous x is still refused."""
+    for a, d in ((257, D), (A, 1088)):
+        args = k1_inputs(2, a, 0, cuda_device, d)
+        torch.testing.assert_close(
+            fused_graph_attention(*args, HEADS),
+            reference_fused_graph_attention(*args, HEADS,
+                                            compute_dtype=torch.bfloat16),
+            rtol=0, atol=3e-2)
     args = k1_inputs(2, A, 0, cuda_device)
     with pytest.raises(ValueError):
         fused_graph_attention(args[0].transpose(0, 1).contiguous()
@@ -157,6 +189,24 @@ def test_k2_matches_plain(cuda_device, rows, a, d, dtype):
     assert_k2_close(got, expect, dtype)
     assert torch.count_nonzero(got[0][1]) == 0
     again = fused_graph_attention_backward(*args, HEADS, compute_dtype=dtype)
+    for t, u in zip(got, again):
+        assert torch.equal(t, u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,a,d,heads", ANY_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_matches_plain_any_shape(cuda_device, rows, a, d, heads, dtype):
+    args = k2_inputs(rows, a, rows + a + d, cuda_device, d)
+    before = fused_graph_attention_backward.launches
+    got = fused_graph_attention_backward(*args, heads, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    assert fused_graph_attention_backward.launches == before + 1
+    expect = reference_fused_graph_attention_backward(*args, heads,
+                                                      compute_dtype=dtype)
+    assert_k2_close(got, expect, dtype)
+    assert torch.count_nonzero(got[0][1]) == 0
+    again = fused_graph_attention_backward(*args, heads, compute_dtype=dtype)
     for t, u in zip(got, again):
         assert torch.equal(t, u)
 
@@ -206,12 +256,14 @@ def test_w_out_as_a_linear_weight_view(cuda_device, dtype):
 
 @pytest.mark.cuda
 def test_k2_rejects_what_it_does_not_take(cuda_device):
-    args = k2_inputs(2, 257, 0, cuda_device)
-    with pytest.raises(ValueError):
-        fused_graph_attention_backward(*args, HEADS)
-    args = k2_inputs(2, A, 0, cuda_device, 1088)     # head dim 136
-    with pytest.raises(ValueError):
-        fused_graph_attention_backward(*args, HEADS)
+    """A = 257 and head dim 136, refused before the limits went, now hold
+    their result; a non-contiguous g is still refused."""
+    for a, d in ((257, D), (A, 1088)):
+        args = k2_inputs(2, a, 0, cuda_device, d)
+        assert_k2_close(
+            fused_graph_attention_backward(*args, HEADS),
+            reference_fused_graph_attention_backward(
+                *args, HEADS, compute_dtype=torch.bfloat16), torch.bfloat16)
     args = k2_inputs(2, A, 0, cuda_device)
     with pytest.raises(ValueError):
         fused_graph_attention_backward(*args[:5], args[5].transpose(0, 1)
@@ -240,7 +292,12 @@ K3_CASES = [(100, 20, D, HEADS, torch.float32), (7, 64, D, HEADS, torch.float32)
             (3, 20, 520, HEADS, torch.float32), (4, 20, D, 4, torch.float32),
             (3, 70, D, 2, torch.float32), (100, 20, D, HEADS, torch.bfloat16),
             (7, 80, D, HEADS, torch.bfloat16), (3, 20, 520, HEADS, torch.bfloat16),
-            (3, 20, 96, HEADS, torch.bfloat16)]
+            (3, 20, 96, HEADS, torch.bfloat16),
+            # head dims past 256, split into column chunks of 256: 320, 512,
+            # 257 (plain loads), bf16 320, several key tiles
+            (4, 20, 1280, 4, torch.float32), (3, 20, 2048, 4, torch.float32),
+            (2, 20, 514, 2, torch.float32), (4, 20, 1280, 4, torch.bfloat16),
+            (3, 70, 1280, 4, torch.float32)]
 
 
 @pytest.mark.cuda
@@ -279,10 +336,32 @@ def test_k3_all_masked_row_and_masked_keys(cuda_device, a):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("a", [A, 80])
+def test_k3_split_head_dim_masked_rows_and_keys(cuda_device, a):
+    """Head dim 320 (two column chunks): an all-masked row is 0 and leaves
+    the other rows' bits alone; masked keys' v at 1e6 changes no bit."""
+    q, k, v, mask = k3_inputs(6, a, 11, cuda_device, 1280)
+    out0 = packed_masked_attention(q, k, v, mask, 4)
+    torch.testing.assert_close(out0, reference_masked_attention(
+        q, k, v, mask, 4), rtol=0, atol=2e-5)
+    mask1 = mask.clone()
+    mask1[2] = False
+    out1 = packed_masked_attention(q, k, v, mask1, 4)
+    assert torch.count_nonzero(out1[2]) == 0
+    keep = torch.arange(6, device=cuda_device) != 2
+    assert torch.equal(out1[keep], out0[keep])
+    v1 = torch.where(mask[..., None], v, torch.full_like(v, 1e6))
+    assert torch.equal(packed_masked_attention(q, k, v1, mask, 4), out0)
+
+
+@pytest.mark.cuda
 def test_k3_rejects_what_it_does_not_take(cuda_device):
+    """Head dim 257, refused before the split, now holds its result; a
+    non-contiguous q and grad mode are still refused."""
     q, k, v, mask = k3_inputs(2, A, 0, cuda_device, 514)
-    with pytest.raises(ValueError):
-        packed_masked_attention(q, k, v, mask, 2)       # head dim 257
+    torch.testing.assert_close(packed_masked_attention(q, k, v, mask, 2),
+                               reference_masked_attention(q, k, v, mask, 2),
+                               rtol=0, atol=2e-5)
     q, k, v, mask = k3_inputs(2, A, 0, cuda_device)
     with pytest.raises(ValueError):
         packed_masked_attention(q.transpose(0, 1).contiguous().transpose(0, 1),

@@ -8,8 +8,10 @@ plain versions on the card by tests/test_torch_kernels_cuda.py.
   kernel's own bound (tests/test_pallas_attention.py:49);
 * the same at (rows, A) = (5, 50), the widest crowd of the repo's configs
   (10-50 humans), and, K1 and K2 in f32, at the shapes the card's kernels
-  newly take: (3, 80) past their single-chunk attention (A <= 64) and
-  (3, 20) at D = 1024 / 8 heads (head dim 128);
+  newly took in PR 7: (3, 80) past their single-chunk attention (A <= 64)
+  and (3, 20) at D = 1024 / 8 heads (head dim 128); and at what they take
+  since their limits went: A = 257, head dim 136 (D = 1088) and D = 100
+  with 4 heads (head dim 25);
 * plain K1 in bf16 vs the JAX Pallas kernel in bf16 (interpret mode), same
   rounding points: atol 2e-2 (bf16 has 8 mantissa bits; sums are ordered
   differently, so a rounding may land one bf16 ulp apart);
@@ -109,6 +111,24 @@ def test_plain_matches_jax_kernel_interpret_wide(rows, A, D):
     np.testing.assert_allclose(got.numpy(), expect, atol=3e-4)
 
 
+# (rows, A, D, heads): the shapes the card's kernels take since their
+# limits went (the tiled attention past A = 256, head dim 136 past 128 with
+# a ragged column chunk, and head dim 25 at D = 100, whose rows are not a
+# multiple of 16 bytes in bf16)
+ANY_SHAPE = [(2, 257, 512, 8), (3, 20, 1088, 8), (3, 20, 100, 4)]
+
+
+@pytest.mark.parametrize("rows,A,D,heads", ANY_SHAPE)
+def test_plain_matches_jax_kernel_interpret_any_shape(rows, A, D, heads):
+    arrs = inputs(rows, A, D, seed=A + D)
+    expect = np.asarray(j_fused_graph_attention(
+        *[jnp.asarray(a) for a in arrs], heads, compute_dtype=jnp.float32,
+        interpret=True))
+    got = fused_graph_attention(*torch_args(arrs), heads,
+                                compute_dtype=torch.float32)
+    np.testing.assert_allclose(got.numpy(), expect, atol=3e-4)
+
+
 def test_wrapper_on_cpu_is_the_plain_version():
     args = torch_args(inputs(4, 20, seed=5))
     before = fused_graph_attention.launches
@@ -180,6 +200,23 @@ def test_plain_backward_matches_jax_kernel_interpret_wide(rows, A, D):
         8, None, "f32", None, True)
     got = reference_fused_graph_attention_backward(
         *torch_args((x, mask, w_qkv, b_qkv, w_out, g)), 8, torch.float32)
+    for name, t, e in zip(GRADS, got, expect):
+        np.testing.assert_allclose(t.numpy(), np.asarray(e), atol=5e-3,
+                                   rtol=1e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("rows,A,D,heads", ANY_SHAPE)
+def test_plain_backward_matches_jax_kernel_interpret_any_shape(rows, A, D,
+                                                               heads):
+    """K2's plain version at the shapes of ANY_SHAPE, f32, at the file's
+    backward bound."""
+    x, mask, w_qkv, b_qkv, w_out, b_out = inputs(rows, A, D, seed=A + D)
+    g = cotangent(rows, A, D, seed=A + D)
+    expect = j_fused_backward(
+        *[jnp.asarray(a) for a in (x, mask, w_qkv, b_qkv, w_out, b_out, g)],
+        heads, None, "f32", None, True)
+    got = reference_fused_graph_attention_backward(
+        *torch_args((x, mask, w_qkv, b_qkv, w_out, g)), heads, torch.float32)
     for name, t, e in zip(GRADS, got, expect):
         np.testing.assert_allclose(t.numpy(), np.asarray(e), atol=5e-3,
                                    rtol=1e-3, err_msg=name)

@@ -6,8 +6,9 @@ tests/test_torch_kernels_cuda.py.
 * plain K3 vs the JAX Pallas kernel in interpret mode: atol 2e-5, the
   kernel's own bound against its reference (tests/test_pallas_attention.py
   :15-26), at that test's shapes and at A = 50 (10-50 human crowds), and at
-  the shapes the Hopper kernel now takes: A = 300 and A = 1, head dims 256
-  and 96, and bf16 q, k, v (both sides compute on their f32 casts). The
+  the shapes the Hopper kernel now takes: A = 300 and A = 1, head dims 256,
+  96 and 320 (past 256: split into column chunks on the card), and bf16 q,
+  k, v (both sides compute on their f32 casts). The
   JAX kernel returns NaN when num_heads < 128 // head dim (its heads per
   call exceed the heads), so no case here has such a shape;
 * plain K3 vs the JAX XLA reference: atol 1e-5 (same math in f32, sums in
@@ -85,6 +86,16 @@ def test_plain_matches_jax_kernel_interpret_wide(rows, A, d, heads, dtype):
     got = reference_masked_attention(tq, tk, tv, torch.from_numpy(mask),
                                      heads)
     assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), expect, atol=2e-5)
+
+
+# head dims past 256, which the Hopper kernel splits into column chunks
+@pytest.mark.parametrize("rows,A,d,heads", [(3, 20, 1280, 4)])
+def test_plain_matches_jax_kernel_interpret_split_head_dim(rows, A, d, heads):
+    arrs = inputs(rows, A, seed=rows + A + d, d=d)
+    expect = np.asarray(j_packed_masked_attention(
+        *[jnp.asarray(a) for a in arrs], heads, interpret=True))
+    got = reference_masked_attention(*torch_args(arrs), heads)
     np.testing.assert_allclose(got.numpy(), expect, atol=2e-5)
 
 

@@ -86,6 +86,7 @@ def to_port_state(js, gens) -> EnvState:
                           radius=_t(h.radius), v_pref=_t(h.v_pref)),
         human_num=_t(js.human_num).long(),
         last_human_states=_t(js.last_human_states),
+        prev_human_states=_t(js.prev_human_states),
         visible_masks=_t(js.visible_masks),
         potential=_t(js.potential), global_time=_t(js.global_time),
         step_count=_t(js.step_count).long(),

@@ -1,10 +1,12 @@
 """Where one flagship PPO iteration of the port spends its time, on the card.
 
-  python tools/profile_train.py [--steps 31] [--iterations 1]
+  python tools/profile_train.py [--steps 31] [--iterations 1] [--config5]
 
 Builds the flagship recipe from the snapshot in
 trained_models/GST_predictor_rand_tpu_r5_selfgst (64 envs, 30 steps, 5
-epochs x 2 minibatches), warm-started from the committed weights, runs one
+epochs x 2 minibatches), warm-started from the committed weights (with
+``--config5``: BASELINE config 5 as the train CLI builds it,
+CrowdSimPredRealGST with 10-50 humans, from a seeded init_params), runs one
 warm-up iteration, then:
 
 * times ``--iterations`` whole ``train_iteration``s with the host clock
@@ -35,8 +37,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+from crowdnav_prediction_attngraph_tpu_torch import train as train_cli  # noqa: E402
 from crowdnav_prediction_attngraph_tpu_torch.algo import ppo  # noqa: E402
-from crowdnav_prediction_attngraph_tpu_torch.config import config_from_snapshot  # noqa: E402
+from crowdnav_prediction_attngraph_tpu_torch.config import (  # noqa: E402
+    build_config, config_from_snapshot)
 from crowdnav_prediction_attngraph_tpu_torch.env import crowd_sim  # noqa: E402
 from crowdnav_prediction_attngraph_tpu_torch.env.pretext import pretext_process  # noqa: E402
 from crowdnav_prediction_attngraph_tpu_torch.env.types import tree_scatter  # noqa: E402
@@ -87,13 +91,22 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=31)
     p.add_argument("--iterations", type=int, default=1)
+    p.add_argument("--config5", action="store_true",
+                   help="BASELINE config 5 (10-50 humans) instead")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train needs a card")
     device = torch.device("cuda")
-    cfg = config_from_snapshot(os.path.join(MODEL_DIR, "config.json"))
+    if args.config5:
+        cfg = build_config(train_cli._parser().parse_args(
+            ["--human-num", "30", "--human-num-range", "20",
+             "--num-processes", "64", "--use-linear-lr-decay"]))
+        model = pmod.init_params(
+            cfg, torch.Generator().manual_seed(cfg.ppo.seed), device)
+    else:
+        cfg = config_from_snapshot(os.path.join(MODEL_DIR, "config.json"))
+        model = pmod.load_policy(cfg, DEFAULT_PARAMS, device)
     gst = load_gst(cfg.pred, DEFAULT_GST_PARAMS, device)
-    model = pmod.load_policy(cfg, DEFAULT_PARAMS, device)
     ts = ppo.init_train_state(cfg, gst, device, model)
     ts, _ = ppo.train_iteration(cfg, ts, gst)            # warm-up
 
@@ -171,6 +184,8 @@ def main(argv=None):
     device_ms = sum(d[1] for d in kernels)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "config": "BASELINE config 5" if args.config5 else "flagship",
+        "max_humans": cfg.sim.max_human_num,
         "envs": pc.num_processes, "steps": pc.num_steps,
         "ppo_epoch": pc.ppo_epoch, "num_mini_batch": pc.num_mini_batch,
         "iteration_s": iteration_s,

@@ -8,7 +8,8 @@ package to time (default: this repo), so two versions of the kernels (an
 unpacked ``git archive`` of another commit, and this tree) can be timed in
 turns within one run on one card, one process each. The inputs are made from
 a seed, as in ``chip_smoke.py`` (K3's from seed 0 with numpy, as the edges/s
-bench makes them: f32 at the bench's rows 4096 x A 20 and at 960 x 50).
+bench makes them: f32 at the bench's rows 4096 x A 20 and at 960 x 50);
+K1's and K2's also at D = 100 with 4 heads (head dim 25).
 Each time is the median over 5 groups of
 back-to-back calls, each group between one pair of CUDA events, divided by
 its call count. ``--train-iters N`` also times N flagship ``train_iteration``s
@@ -34,6 +35,9 @@ D, HEADS = 512, 8
 K1_SHAPES = ((32, 20), (64, 20), (960, 20), (960, 50))
 K2_SHAPES = ((960, 20), (960, 50))
 K3_SHAPES = ((4096, 20), (960, 50))
+# K1 and K2 at a head dim the tensor-core attention does not take (25):
+# (rows, A, D, heads)
+ODD_HEAD_DIM = (960, 20, 100, 4)
 
 
 def time_ms(fn, reps: int, groups: int = 5) -> float:
@@ -54,16 +58,16 @@ def time_ms(fn, reps: int, groups: int = 5) -> float:
     return statistics.median(per_call)
 
 
-def inputs(rows: int, a: int, seed: int, device):
+def inputs(rows: int, a: int, seed: int, device, d: int = D):
     g = torch.Generator().manual_seed(seed)
-    x = torch.randn(rows, a, D, generator=g)
-    w_qkv = torch.randn(D, 3 * D, generator=g) / math.sqrt(D)
-    b_qkv = torch.randn(3 * D, generator=g) * 0.01
-    w_out = torch.randn(D, D, generator=g) / math.sqrt(D)
-    b_out = torch.randn(D, generator=g) * 0.01
+    x = torch.randn(rows, a, d, generator=g)
+    w_qkv = torch.randn(d, 3 * d, generator=g) / math.sqrt(d)
+    b_qkv = torch.randn(3 * d, generator=g) * 0.01
+    w_out = torch.randn(d, d, generator=g) / math.sqrt(d)
+    b_out = torch.randn(d, generator=g) * 0.01
     det = torch.randint(1, a + 1, (rows,), generator=g)
     mask = torch.arange(a)[None, :] < det[:, None]
-    gy = torch.randn(rows, a, D, generator=g)
+    gy = torch.randn(rows, a, d, generator=g)
     return [t.to(device) for t in (x, mask, w_qkv, b_qkv, w_out, b_out, gy)]
 
 
@@ -125,6 +129,16 @@ def main() -> int:
             res["k2"][f"{tag}_{rows}x{a}"] = time_ms(
                 lambda: fused_graph_attention_backward(
                     x, mask, w_qkv, b_qkv, w_out, gy, HEADS, dtype), reps=10)
+        rows, a, d, heads = ODD_HEAD_DIM
+        x, mask, w_qkv, b_qkv, w_out, b_out, gy = inputs(rows, a, rows, device,
+                                                         d)
+        tag_d = f"{tag}_{rows}x{a}_d{d}_h{heads}"
+        res["k1"][tag_d] = time_ms(
+            lambda: fused_graph_attention(x, mask, w_qkv, b_qkv, w_out, b_out,
+                                          heads, dtype), reps=10)
+        res["k2"][tag_d] = time_ms(
+            lambda: fused_graph_attention_backward(
+                x, mask, w_qkv, b_qkv, w_out, gy, heads, dtype), reps=10)
     if args.train_iters:
         res["train_iteration_seconds"] = time_train(args.train_iters, device)
     print(json.dumps(res), flush=True)
