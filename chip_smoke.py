@@ -16,12 +16,15 @@ Phases, each printing one JSON line with its seconds before the next starts:
    A = 50 (BASELINE config 5's rollout and update) and at rows = 960,
    A = 80 (past the kernels' resident attention), in f32 (atol 3e-4) and bf16
    (atol 3e-2), with a second run that must give the same bits and an
-   all-masked row checked for isolation, and in bf16 at the edges/s
+   all-masked row checked for isolation, at rows 64 and 960 x A = 20 under
+   scattered masks (``sort_humans=False``: about half the keys valid in no
+   prefix order, a row with only column 0 valid), and in bf16 at the edges/s
    bench's own inputs (``bench_edges.sweep_inputs``: rows 480, 1920 and
    7680, x scaled by 0.3), timed there too; holds K2 (its backward)
-   against its plain version at the update's shape and at A = 50 and 80
-   in f32 (atol 5e-3 / rtol 1e-3) and bf16 (max abs error <= 1e-2 x the
-   largest entry of each gradient), with an all-masked row whose dx must be
+   against its plain version at the update's shape, at A = 50 and 80, and
+   at rows 64 and 960 x A = 20 under scattered masks, in f32 (atol 5e-3 /
+   rtol 1e-3) and bf16 (max abs error <= 1e-2 x the largest entry of each
+   gradient), with an all-masked row whose dx must be
    0 and a second run that must give the same bits; holds K3 (packed masked
    attention over precomputed q, k, v) against its plain version at the
    edges/s bench's shape (rows = 4096, A = 20, 8 heads, f32), at (960, 50),
@@ -81,7 +84,22 @@ Phases, each printing one JSON line with its seconds before the next starts:
    steps; the committed GST export), K1 at 64 x 50 and 960 x 50 (41
    launches) and K2 at 960 x 50 (10); then the PPO gradient of a further
    rollout's first minibatch through the kernels against the plain
-   versions, to the train phase's bounds.
+   versions, to the train phase's bounds;
+10. unicycle_train: one PPO iteration of the unicycle recipe
+   (trained_models/GST_predictor_unicycle_scratch_r5/config.json:
+   CrowdSimPredRealGST, 20 humans, unicycle, v_pref 0.6, 64 envs x 30
+   steps) with the committed GST export, warm-started from the committed
+   flagship policy at total_steps = half the spin-penalty warmup (the
+   annealed coefficient 2.25): K1 = 41 and K2 = 10 launches; fails on a
+   non-finite loss or rewards without the spin term (one step against the
+   same step at coefficient 0); then the gradient check;
+11. policy_variants: ``sort_humans=False`` under config 2 (CrowdSimPred
+   truth, 10 humans), ``use_hr_attn=False`` and ``use_self_attn=False``
+   under the flagship env, DS-RNN under config 1, each from a seeded
+   ``init_params`` (rates printed, not gated): 32 cases cut at 40 steps,
+   then one PPO iteration (64 envs x 30 steps), the counts read for each:
+   K1 in the first two and never in the last two, K2 in the first two
+   updates; the gradient check on ``sort_humans=False``'s.
 
 The kernels line also gives each kernel's device launches per call and the
 registers and spills that ptxas reported for each of its CUDA functions.
@@ -131,6 +149,8 @@ from crowdnav_prediction_attngraph_tpu_torch.utils import checkpoint
 REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL_DIR = os.path.join(REPO, "trained_models",
                          "GST_predictor_rand_tpu_r5_selfgst")
+UNICYCLE_DIR = os.path.join(REPO, "trained_models",
+                            "GST_predictor_unicycle_scratch_r5")
 N_CASES = 32
 MIN_SUCCESS = 0.70
 # the scripted and variant suites' depth: 40 steps (10 s of an episode's
@@ -149,6 +169,9 @@ A_PAST = 80            # past K1's and K2's single-chunk attention (A <= 64)
 # variants_eval's crowds: config 1 (5 humans) and config 2 (10 humans), at
 # rows N_CASES
 A_VARIANTS = (5, 10)
+# rows of the scattered-mask checks (sort_humans=False): the rollout's envs
+# and the update's minibatch, A = 20
+SCATTERED_ROWS = (64, 960)
 # K3 (rows, A, heads, dtype): the edges/s bench's shape first (the kernels
 # line reports it), the wide crowd, one and several key tiles past the
 # bench's, A = 256, head dim 256 and bf16 inputs at the bench's rows
@@ -202,7 +225,13 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def k1_inputs(rows: int, seed: int, device, a: int = A, d: int = D):
+def k1_inputs(rows: int, seed: int, device, a: int = A, d: int = D,
+              scattered: bool = False):
+    """K1's inputs from a seed. The key mask is a prefix of a random length
+    (the detected humans of ``sort_humans``), or, ``scattered``, the
+    visibility mask of ``sort_humans=False``: about half the keys valid in
+    no prefix order, row 0 with only column 0 valid, column 0 set on rows
+    with no valid key (the policy's fallback)."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn(rows, a, d, generator=g)
     w_qkv = torch.randn(d, 3 * d, generator=g) / math.sqrt(d)
@@ -211,6 +240,14 @@ def k1_inputs(rows: int, seed: int, device, a: int = A, d: int = D):
     b_out = torch.randn(d, generator=g) * 0.01
     det = torch.randint(1, a + 1, (rows,), generator=g)
     mask = torch.arange(a)[None, :] < det[:, None]
+    if scattered:
+        mask = torch.rand(rows, a, generator=g) < 0.5
+        mask[0] = False
+        mask[~mask.any(-1), 0] = True
+        prefix = torch.arange(a)[None, :] < mask.sum(-1, keepdim=True)
+        if not (mask != prefix).any(-1).float().mean() > 0.5:
+            fail(f"the scattered mask at rows={rows} A={a} is mostly a "
+                 f"prefix")
     return [t.to(device) for t in (x, mask, w_qkv, b_qkv, w_out, b_out)]
 
 
@@ -398,9 +435,12 @@ def k3_library(q, k, v, mask, heads: int = HEADS):
 
 
 def check_k1(rows: int, device, a: int = A, d: int = D,
-             heads: int = HEADS, reps: int = 30) -> dict:
-    args = k1_inputs(rows, seed=rows, device=device, a=a, d=d)
-    res = {"rows": rows, "A": a, "D": d, "heads": heads}
+             heads: int = HEADS, reps: int = 30,
+             scattered: bool = False) -> dict:
+    args = k1_inputs(rows, seed=rows, device=device, a=a, d=d,
+                     scattered=scattered)
+    res = {"rows": rows, "A": a, "D": d, "heads": heads,
+           "mask": "scattered" if scattered else "prefix"}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         got = fused_graph_attention(*args, heads, compute_dtype=dtype)
         torch.cuda.synchronize()
@@ -408,12 +448,13 @@ def check_k1(rows: int, device, a: int = A, d: int = D,
                                                  compute_dtype=dtype)
         err = (got - expect).abs().max().item()
         if not math.isfinite(err) or err > ATOL[dtype]:
-            fail(f"K1 {tag} rows={rows}: max abs err {err} > {ATOL[dtype]}")
+            fail(f"K1 {tag} {res['mask']} mask rows={rows}: max abs err "
+                 f"{err} > {ATOL[dtype]}")
         res[f"max_abs_err_{tag}"] = err
         if not torch.equal(got, fused_graph_attention(*args, heads,
                                                       compute_dtype=dtype)):
-            fail(f"K1 {tag} rows={rows} A={a}: two runs on the same inputs "
-                 f"differ")
+            fail(f"K1 {tag} {res['mask']} mask rows={rows} A={a}: two runs "
+                 f"on the same inputs differ")
         # all-masked row: output b_out, other rows untouched
         x, mask = args[0].clone(), args[1].clone()
         mask[1] = False
@@ -425,7 +466,8 @@ def check_k1(rows: int, device, a: int = A, d: int = D,
         keep = torch.arange(rows, device=device) != 1
         if not (torch.equal(out0[1], args[5].expand(a, d))
                 and torch.equal(out0[keep], out1[keep])):
-            fail(f"K1 {tag} rows={rows}: all-masked row isolation broken")
+            fail(f"K1 {tag} {res['mask']} mask rows={rows}: all-masked row "
+                 f"isolation broken")
         res[f"kernel_ms_{tag}"] = time_ms(lambda: fused_graph_attention(
             *args, heads, compute_dtype=dtype), reps)
         res[f"plain_ms_{tag}"] = time_ms(
@@ -465,14 +507,16 @@ def check_k1_edges(device) -> dict:
 
 
 def check_k2(rows: int, device, a: int = A, d: int = D,
-             heads: int = HEADS, reps: int = 10) -> dict:
-    x, mask, w_qkv, b_qkv, w_out, b_out = k1_inputs(rows, seed=rows + 7,
-                                                    device=device, a=a, d=d)
+             heads: int = HEADS, reps: int = 10,
+             scattered: bool = False) -> dict:
+    x, mask, w_qkv, b_qkv, w_out, b_out = k1_inputs(
+        rows, seed=rows + 7, device=device, a=a, d=d, scattered=scattered)
     mask[1] = False                                   # an all-masked row
     g = torch.randn(rows, a, d, generator=torch.Generator().manual_seed(
         rows)).to(device)
     args = (x, mask, w_qkv, b_qkv, w_out, g)
-    res = {"rows": rows, "A": a, "D": d, "heads": heads}
+    res = {"rows": rows, "A": a, "D": d, "heads": heads,
+           "mask": "scattered" if scattered else "prefix"}
     for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         got = fused_graph_attention_backward(*args, heads, compute_dtype=dtype)
         torch.cuda.synchronize()
@@ -486,14 +530,16 @@ def check_k2(rows: int, device, a: int = A, d: int = D,
             ok = (torch.allclose(t, e, rtol=1e-3, atol=5e-3)
                   if dtype == torch.float32 else err <= K2_BF16_REL * scale)
             if not (ok and math.isfinite(err)):
-                fail(f"K2 {tag} rows={rows} A={a} D={d} {name}: max abs err "
-                     f"{err} (largest entry {scale})")
+                fail(f"K2 {tag} {res['mask']} mask rows={rows} A={a} D={d} "
+                     f"{name}: max abs err {err} (largest entry {scale})")
         if torch.count_nonzero(got[0][1]):
-            fail(f"K2 {tag}: the all-masked row's dx is not 0")
+            fail(f"K2 {tag} {res['mask']} mask rows={rows}: the all-masked "
+                 f"row's dx is not 0")
         again = fused_graph_attention_backward(*args, heads,
                                                compute_dtype=dtype)
         if not all(torch.equal(u, v) for u, v in zip(got, again)):
-            fail(f"K2 {tag}: two runs on the same inputs differ")
+            fail(f"K2 {tag} {res['mask']} mask rows={rows}: two runs on the "
+                 f"same inputs differ")
         res[f"max_abs_err_{tag}"] = max(errs.values())
         res[f"max_abs_err_by_grad_{tag}"] = errs
         res[f"kernel_ms_{tag}"] = time_ms(lambda: fused_graph_attention_backward(
@@ -771,17 +817,18 @@ def _suite_metrics(res, name) -> dict:
     return metrics
 
 
-def run_suites(suites, device, policy_of) -> tuple:
+def run_suites(suites, device, policy_of, gst=None) -> tuple:
     """Each (name, cfg, robot policy) as one 32-case batch of SUITE_STEPS
     steps, the launch counts zeroed just before and read just after each:
-    ({name: result}, launches summed over the suites)."""
+    ({name: result}, launches summed over the suites). ``gst`` is the
+    predictor of the ``inferred`` env (unused by the others)."""
     runs, total = {}, {}
     for name, cfg, robot in suites:
         policy = policy_of(cfg)
         zero_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = evaluation.evaluate(cfg, policy, None, test_size=N_CASES,
+        res = evaluation.evaluate(cfg, policy, gst, test_size=N_CASES,
                                   batch_size=N_CASES, device=device,
                                   log=lambda m: None, robot_policy=robot,
                                   max_steps=SUITE_STEPS)
@@ -910,6 +957,193 @@ def phase_variants_train(device) -> dict:
     return launches
 
 
+def _cloned_gens(states):
+    """``states`` with copies of its env generators, so that a step taken
+    for a check leaves the run's streams where they were."""
+    gens = []
+    for g in states.gens:
+        c = torch.Generator()
+        c.set_state(g.get_state())
+        gens.append(c)
+    return dataclasses.replace(states, gens=gens)
+
+
+def phase_unicycle_train(gst, device) -> dict:
+    """One PPO iteration of the unicycle recipe
+    (trained_models/GST_predictor_unicycle_scratch_r5/config.json:
+    CrowdSimPredRealGST, 20 humans drawn from [1, 20], unicycle, v_pref 0.6,
+    64 envs x 30 steps, the spin penalty annealed over 8 M env steps) with
+    the committed GST export as its predictor (the run's own is not in the
+    repo), warm-started from the committed flagship policy (the JAX
+    package's holonomic-to-unicycle curriculum, ``--init-params-from``) at
+    total_steps = half the warmup, so the annealed coefficient is live
+    (2.25). Launch counts zeroed just before and read just after the
+    iteration: K1 = 31 + 10, K2 = 10. Fails on a non-finite loss, or on
+    rewards without the spin term: one step of the policy's actions at the
+    annealed coefficient against the same step at 0 must differ by
+    -2.25 r^2. Then the PPO gradient check of a further rollout's first
+    minibatch, to the train phase's bounds."""
+    t0 = time.perf_counter()
+    cfg = config_from_snapshot(os.path.join(UNICYCLE_DIR, "config.json"))
+    p, r = cfg.ppo, cfg.reward
+    if not (cfg.action_space.kinematics == "unicycle"
+            and r.spin_penalty_warmup_steps > 0):
+        fail(f"unicycle_train: {UNICYCLE_DIR} is not an annealed unicycle "
+             f"run")
+    ts = ppo.init_train_state(cfg, gst, device,
+                              pmod.load_policy(cfg, DEFAULT_PARAMS, device))
+    ts = dataclasses.replace(ts, total_steps=r.spin_penalty_warmup_steps // 2)
+    coef = ppo.spin_coefficient(cfg, ts.total_steps, "train", device)
+    if coef is None or abs(coef.item() - r.spin_penalty_factor / 2) > 1e-6:
+        fail(f"unicycle_train: spin coefficient {coef} at half the warmup")
+    zero_counts()
+    torch.cuda.synchronize()
+    t_it = time.perf_counter()
+    ts, m = ppo.train_iteration(cfg, ts, gst)
+    torch.cuda.synchronize()
+    iter_s = time.perf_counter() - t_it
+    launches = read_counts()
+    n_updates = p.ppo_epoch * p.num_mini_batch
+    expect = {"K1_fused_graph_attention": p.num_steps + 1 + n_updates,
+              "K2_fused_graph_attention_backward": n_updates,
+              "K3_packed_masked_attention": 0}
+    metrics = {k: float(m[k]) for k in ("value_loss", "action_loss",
+                                        "dist_entropy", "reward_mean")}
+    if launches != expect:
+        fail(f"unicycle_train launches {launches}, expected {expect}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"unicycle_train: non-finite metric {metrics}")
+
+    # the rewards hold the spin term: the same step at coefficient 0
+    states = ts.env_states
+    _, action, _, _ = pmod.act(ts.model, ts.obs, ts.hxs, ts.masks)
+    coef = ppo.spin_coefficient(cfg, ts.total_steps, "train", device)
+    rew = crowd_sim.step(cfg, _cloned_gens(states), action, "train",
+                         spin_coef=coef)[2]
+    rew0 = crowd_sim.step(cfg, _cloned_gens(states), action, "train",
+                          spin_coef=0.0)[2]
+    turn = action[:, 1].clamp(-0.06, 0.06)
+    spin = rew - rew0
+    spin_err = (spin + coef * turn ** 2).abs().max().item()
+    if not (spin_err <= 1e-5 and spin.abs().max().item() > 0):
+        fail(f"unicycle_train: the rewards lack the spin term (largest "
+             f"term {spin.abs().max().item()}, error {spin_err})")
+    speed = states.desired_velocity
+    humans = states.human_num
+
+    t_ro = time.perf_counter()
+    ts, batch = ppo.rollout(cfg, ts, gst)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t_ro
+    cosine, rel, worst = grad_check(cfg, ts.model, batch, device)
+    steps = p.num_steps * p.num_processes
+    emit("unicycle_train", t0, config=os.path.relpath(UNICYCLE_DIR, REPO),
+         envs=p.num_processes, steps=p.num_steps, v_pref=cfg.robot.v_pref,
+         total_steps_at_start=r.spin_penalty_warmup_steps // 2,
+         spin_coef=coef.item(), iteration_seconds=iter_s,
+         iteration_env_steps_per_s=steps / iter_s, rollout_seconds=rollout_s,
+         rollout_env_steps_per_s=steps / rollout_s,
+         humans_min_max=[int(humans.min()), int(humans.max())],
+         desired_velocity_min_max=[speed.min().item(), speed.max().item()],
+         spin_term_max=spin.abs().max().item(), spin_term_err=spin_err,
+         metrics=metrics, launches=launches,
+         grad_cosine_kernel_vs_plain=cosine, grad_rel_err_kernel_vs_plain=rel,
+         grad_worst_attn_leaf=worst)
+    return launches
+
+
+def phase_policy_variants(gst, device) -> dict:
+    """The ablations and DS-RNN as the train CLI builds their envs, each
+    from a seeded init_params (untrained: rates printed, not gated), full
+    widths: 32 cases cut at SUITE_STEPS, then one PPO iteration (64 envs x
+    30 steps, 5 epochs x 2 minibatches), the counts zeroed before and read
+    after each. ``sort_humans=False`` under BASELINE config 2
+    (CrowdSimPred truth, 10 humans, left unsorted: K1 and K2 under the
+    env's scattered visibility masks), ``use_hr_attn=False`` and
+    ``use_self_attn=False`` under the flagship env (CrowdSimPredRealGST, 20
+    humans, the committed GST export), DS-RNN under BASELINE config 1
+    (CrowdSimVarNum, 5 humans). K1 must launch in the first two and never
+    in the last two; K2 must launch in the ``sort_humans=False`` update,
+    whose gradient is checked against the plain versions."""
+    t0 = time.perf_counter()
+
+    def cli(*flags, policy="selfAttn_merge_srnn", **net):
+        cfg = build_config(train_cli._parser().parse_args(
+            list(flags) + ["--num-processes", "64", "--use-linear-lr-decay"]))
+        return cfg.replace(
+            robot=dataclasses.replace(cfg.robot, policy=policy),
+            network=dataclasses.replace(cfg.network, **net))
+    gst_env = ("--env-name", "CrowdSimPredRealGST", "--human-num", "20")
+    variants = (
+        ("sort_humans_false", cli("--env-name", "CrowdSimPred",
+                                  "--predict-method", "truth",
+                                  "--human-num", "10", sort_humans=False),
+         True),
+        ("no_hr_attn", cli(*gst_env, use_hr_attn=False), True),
+        ("no_self_attn", cli(*gst_env, use_self_attn=False), False),
+        ("srnn", cli("--env-name", "CrowdSimVarNum", "--human-num", "5",
+                     policy="srnn"), False))
+    runs, total = {}, {}
+    for name, cfg, attends in variants:
+        p = cfg.ppo
+        model = pmod.init_params(cfg, torch.Generator().manual_seed(p.seed),
+                                 device)
+        g = gst if cfg.sim.predict_method == "inferred" else None
+        suite, eval_launches = run_suites(((name, cfg, "network"),), device,
+                                          lambda c: model, g)
+        ts = ppo.init_train_state(cfg, g, device, model)
+        zero_counts()
+        torch.cuda.synchronize()
+        t_it = time.perf_counter()
+        ts, m = ppo.train_iteration(cfg, ts, g)
+        torch.cuda.synchronize()
+        iter_s = time.perf_counter() - t_it
+        train_launches = read_counts()
+        metrics = {k: float(m[k]) for k in ("value_loss", "action_loss",
+                                            "dist_entropy", "reward_mean")}
+        run = {"env_name": cfg.env_name,
+               "predict_method": cfg.sim.predict_method,
+               "humans": cfg.sim.human_num, "robot_policy": cfg.robot.policy,
+               "sort_humans": cfg.network.sort_humans,
+               "use_self_attn": cfg.network.use_self_attn,
+               "use_hr_attn": cfg.network.use_hr_attn,
+               "eval": suite[name], "iteration_seconds": iter_s,
+               "train_metrics": metrics, "train_launches": train_launches}
+        n_updates = p.ppo_epoch * p.num_mini_batch
+        expect = {"K1_fused_graph_attention":
+                  p.num_steps + 1 + n_updates if attends else 0,
+                  "K2_fused_graph_attention_backward":
+                  n_updates if attends else 0,
+                  "K3_packed_masked_attention": 0}
+        k1_eval = eval_launches["K1_fused_graph_attention"]
+        if (train_launches != expect or (k1_eval > 0) != attends
+                or eval_launches["K2_fused_graph_attention_backward"]
+                or eval_launches["K3_packed_masked_attention"]):
+            fail(f"policy_variants {name}: launches {eval_launches} in the "
+                 f"suite and {train_launches} in the iteration, expected "
+                 f"K1 {'> 0' if attends else '= 0'} and {expect}")
+        if not all(math.isfinite(v) for v in metrics.values()):
+            fail(f"policy_variants {name}: non-finite metric {metrics}")
+        if name == "sort_humans_false":
+            vis = ts.obs["visible_masks"]
+            prefix = (torch.arange(vis.shape[1], device=device)[None]
+                      < vis.sum(-1, keepdim=True))
+            run["rows_not_a_prefix"] = (vis != prefix).any(-1).float() \
+                .mean().item()
+            ts, batch = ppo.rollout(cfg, ts, g)
+            cosine, rel, worst = grad_check(cfg, ts.model, batch, device)
+            run.update(grad_cosine_kernel_vs_plain=cosine,
+                       grad_rel_err_kernel_vs_plain=rel,
+                       grad_worst_attn_leaf=worst)
+        runs[name] = run
+        for launches in (eval_launches, train_launches):
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+    emit("policy_variants", t0, cases=N_CASES, max_steps=SUITE_STEPS,
+         runs=runs, launches=total)
+    return total
+
+
 def phase_edges(device) -> tuple:
     """The edges/s bench at its full shapes, through its own entry points:
     (launch counts, fused_sweep's ms)."""
@@ -970,6 +1204,12 @@ def main() -> int:
     k2 = check_k2(960, device)
     k2_wide = check_k2(960, device, A_WIDE)
     k2_past = check_k2(960, device, A_PAST)
+    # the scattered masks of sort_humans=False at the rollout's and the
+    # update's rows
+    k1_scattered = {rows: check_k1(rows, device, scattered=True)
+                    for rows in SCATTERED_ROWS}
+    k2_scattered = {rows: check_k2(rows, device, scattered=True)
+                    for rows in SCATTERED_ROWS}
     k3 = [check_k3(rows, a, heads, dt, device, stream=(i == 0))
           for i, (rows, a, heads, dt) in enumerate(K3_CASES)]
     # what the kernels take since their shape limits went
@@ -1001,7 +1241,8 @@ def main() -> int:
     }
     emit("kernels", t0, k1=k1, k1_a50=k1_wide, k1_rows64_a50=k1_wide64,
          k1_a80=k1_past, k1_variants=k1_variants,
-         k1_edges=k1_edges, k2=k2, k2_a50=k2_wide, k2_a80=k2_past, k3=k3,
+         k1_edges=k1_edges, k2=k2, k2_a50=k2_wide, k2_a80=k2_past,
+         k1_scattered=k1_scattered, k2_scattered=k2_scattered, k3=k3,
          k1_any_shape=k1_any, k2_any_shape=k2_any, k3_any_shape=k3_any,
          device_kernels=dev_kernels)
 
@@ -1014,7 +1255,9 @@ def main() -> int:
                      "edges": edges_launches,
                      "scripted": phase_scripted(device),
                      "variants_eval": phase_variants_eval(device),
-                     "variants_train": phase_variants_train(device)}
+                     "variants_train": phase_variants_train(device),
+                     "unicycle_train": phase_unicycle_train(gst, device),
+                     "policy_variants": phase_policy_variants(gst, device)}
 
     def per_call(name):
         return {"device_launches_per_call": {
@@ -1050,6 +1293,8 @@ def main() -> int:
     k1_entry[f"rows960_a{A_PAST}"] = k1_past
     for a, m in k1_variants.items():
         k1_entry[f"rows{N_CASES}_a{a}"] = m
+    for rows, m in k1_scattered.items():
+        k1_entry[f"rows{rows}_scattered_mask"] = m
     k1_entry["edges_max_abs_err_bf16"] = {r: e["max_abs_err"]
                                           for r, e in k1_edges.items()}
     k1_entry["edges_sweep_rows"] = k1_edges
@@ -1061,6 +1306,8 @@ def main() -> int:
     k2_entry[f"rows960_a{A_WIDE}"] = k2_wide
     k2_entry[f"rows960_a{A_PAST}"] = k2_past
     k2_entry["any_shape"] = k2_any
+    for rows, m in k2_scattered.items():
+        k2_entry[f"rows{rows}_scattered_mask"] = m
     k3_by_path = {p: path_launches[p]["K3_packed_masked_attention"]
                   for p in path_launches}
     k3_entry = {

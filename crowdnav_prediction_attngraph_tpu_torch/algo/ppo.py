@@ -117,11 +117,30 @@ def init_train_state(cfg: Config, gst_model: Optional[STModel], device,
         total_steps=0)
 
 
+def spin_coefficient(cfg: Config, total_steps: int, phase: str, device):
+    """The unicycle's annealed spin-penalty coefficient for a rollout that
+    starts at ``total_steps`` env steps (``ppo.py:106-114``): factor x
+    clip(total_steps / warmup, 0, 1), in float32 as a device scalar, when
+    ``reward.spin_penalty_warmup_steps`` > 0, the robot is a unicycle and
+    the phase is "train"; None (the constant factor) otherwise."""
+    r = cfg.reward
+    if not (r.spin_penalty_warmup_steps > 0 and phase == "train"
+            and cfg.action_space.kinematics == "unicycle"):
+        return None
+    steps = torch.tensor(float(total_steps), dtype=torch.float32,
+                         device=device)
+    frac = (steps / r.spin_penalty_warmup_steps).clamp(0.0, 1.0)
+    return r.spin_penalty_factor * frac
+
+
 def rollout(cfg: Config, ts: TrainState, gst_model: Optional[STModel],
             phase: str = "train") -> Tuple[TrainState, RolloutBatch]:
     """T steps of sampled actions and env steps, then the bootstrap value
-    (``ppo.py:101-163``; reference train.py:152-207)."""
+    (``ppo.py:101-163``; reference train.py:152-207). The unicycle's spin
+    penalty is annealed by :func:`spin_coefficient`, computed once from the
+    rollout's first step."""
     T = cfg.ppo.num_steps
+    spin_coef = spin_coefficient(cfg, ts.total_steps, phase, ts.masks.device)
     env_states, obs, hxs, masks = ts.env_states, ts.obs, ts.hxs, ts.masks
     ep_ret, ep_env = ts.ep_return, ts.ep_return_env
     nan = torch.full_like(ep_ret, float("nan"))
@@ -131,7 +150,7 @@ def rollout(cfg: Config, ts: TrainState, gst_model: Optional[STModel],
             ts.model, obs, hxs, masks, deterministic=False,
             generator=ts.generator)
         env_states, obs_next, rew, done, info, penalty = vector.vec_step(
-            cfg, env_states, action, phase, gst_model)
+            cfg, env_states, action, phase, gst_model, spin_coef)
         ep_ret = ep_ret + rew
         ep_env = ep_env + rew - penalty
         steps.append(dict(

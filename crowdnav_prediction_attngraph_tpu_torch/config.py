@@ -231,7 +231,8 @@ class NetworkConfig:
     # "all" | "rollout": where the kernel runs once the training slice
     # lands (the port's inference path always uses it when enabled)
     pallas_scope: str = "all"
-    # ring attention over the agent axis (not ported yet; must stay False)
+    # ring attention over the agent axis: the port has no process group,
+    # so the dense branch runs, as the JAX package's does without a mesh
     use_ring_attention: bool = False
     ring_axis: str = "tp"
 

@@ -10,11 +10,10 @@ social-force humans (:163-194), the const-vel and ground-truth futures
 (:201-271), ``generate_ob`` (:283-346), ``calc_reward`` with the social
 term of the CrowdSimPred envs (:353-429), respawn, goal changes and the
 varying human count (:436-546), ``reset`` (:553-611), the scripted ORCA and
-social-force robots (:614-656) and ``step`` (:659-745). Where the JAX
-package vmaps one-env functions, these take a leading env axis B; every ORCA
-and social-force call solves all (env x agent) egos at once.
-
-Not ported yet (it raises): the unicycle robot.
+social-force robots (:614-656) and ``step`` (:659-745), for the holonomic
+and the unicycle robot. Where the JAX package vmaps one-env functions,
+these take a leading env axis B; every ORCA and social-force call solves
+all (env x agent) egos at once.
 """
 
 from __future__ import annotations
@@ -39,13 +38,6 @@ BELIEF_DUMMY = (15.0, 15.0, 0.0, 0.0, 0.3)
 # Dummy neighbour an agent substitutes for peers outside its FOV.
 NEIGHBOR_DUMMY_POS = 7.0
 HIDDEN_FUTURE = (15.0, 15.0, 0.0, 0.0)
-
-
-def check_supported(cfg: Config):
-    """Raise for the configurations this port does not cover yet."""
-    if cfg.action_space.kinematics != "holonomic":
-        raise NotImplementedError(
-            f"not ported yet: kinematics={cfg.action_space.kinematics!r}")
 
 
 def stale_neighbor_radii(A: int) -> torch.Tensor:
@@ -86,8 +78,17 @@ def _active_mask(cfg: Config, human_num) -> torch.Tensor:
     return idx[None, :] < human_num[:, None]
 
 
-def _heading(vel):
-    # holonomic agents head along their velocity (crowd_sim.py:514-517)
+def _unicycle(cfg: Config) -> bool:
+    return cfg.action_space.kinematics == "unicycle"
+
+
+def _heading(cfg: Config, vel, theta=None):
+    """Holonomic agents head along their velocity (crowd_sim.py:51-53);
+    under the unicycle every agent heads along its theta. The JAX package
+    (as the reference) switches on the robot's kinematics for the humans
+    too, whose theta is 0 there (``crowd_sim.py:77-100``): reproduced."""
+    if _unicycle(cfg):
+        return torch.zeros_like(vel[..., 0]) if theta is None else theta
     return torch.atan2(vel[..., 1], vel[..., 0])
 
 
@@ -101,7 +102,7 @@ def _offset_angle(p1_pos, p1_heading, p2_pos):
 
 def robot_human_visibility(cfg: Config, state: EnvState) -> torch.Tensor:
     """(B, A): which active humans the robot sees (crowd_sim.py:558-572)."""
-    heading = _heading(state.robot.vel)
+    heading = _heading(cfg, state.robot.vel, state.robot.theta)
     offset = _offset_angle(state.robot.pos[:, None], heading[:, None],
                            state.humans.pos)
     in_fov = offset.abs() <= (math.pi * cfg.robot.fov) / 2.0
@@ -113,7 +114,7 @@ def robot_human_visibility(cfg: Config, state: EnvState) -> torch.Tensor:
 
 def human_sees_robot(cfg: Config, state: EnvState) -> torch.Tensor:
     """(B, A): does each active human see the robot (crowd_sim.py:92-100)."""
-    heading = _heading(state.humans.vel)
+    heading = _heading(cfg, state.humans.vel)
     offset = _offset_angle(state.humans.pos, heading,
                            state.robot.pos[:, None].expand_as(state.humans.pos))
     in_fov = offset.abs() <= (math.pi * cfg.humans.fov) / 2.0
@@ -123,7 +124,7 @@ def human_sees_robot(cfg: Config, state: EnvState) -> torch.Tensor:
 def human_pair_visibility(cfg: Config, state: EnvState) -> torch.Tensor:
     """(B, A, A): does human i see human j (unbounded range, FOV
     humans.fov * pi)."""
-    heading = _heading(state.humans.vel)                          # (B, A)
+    heading = _heading(cfg, state.humans.vel)                     # (B, A)
     offset = _offset_angle(state.humans.pos[:, :, None], heading[:, :, None],
                            state.humans.pos[:, None, :])
     in_fov = offset.abs() <= (math.pi * cfg.humans.fov) / 2.0
@@ -346,14 +347,22 @@ def generate_ob(cfg: Config, state: EnvState, reset: bool
     return obs, state
 
 
-def calc_reward(cfg: Config, state: EnvState, future_traj, phase: str):
-    """R(s, a) for the holonomic robot (crowd_sim_var_num.py:465-561). In the
-    test phase the danger zone comes from the ground-truth future; in the
-    train phase it is the current ``dmin < discomfort_dist`` and the
-    reported min_dist is 0 (JAX ``crowd_sim.py:372-374, 425-428``). The
-    CrowdSimPred envs (``const_vel``, ``truth``) add the social term of the
-    predicted futures (crowd_sim_pred.py:216-233; JAX :416-423). Returns
-    (reward, done, new_potential, StepInfo), each (B,)."""
+def calc_reward(cfg: Config, state: EnvState, future_traj, phase: str,
+                action_v=None, action_r=None, spin_coef=None):
+    """R(s, a) (crowd_sim_var_num.py:465-561; JAX ``crowd_sim.py:353-429``).
+    In the test phase the danger zone comes from the ground-truth future;
+    in the train phase it is the current ``dmin < discomfort_dist`` and the
+    reported min_dist is 0. The CrowdSimPred envs (``const_vel``, ``truth``)
+    add the social term of the predicted futures (crowd_sim_pred.py:216-233).
+    The unicycle reaches its goal within 0.6 m, earns 3x the potential
+    (2x for the holonomic robot) and pays the spin penalty
+    -coef * action_r^2 and, when driving backwards, -2 |action_v|; its speed
+    and heading change ``action_v``, ``action_r`` (B,) are then required.
+    ``coef`` is ``spin_coef`` (a float or a device scalar: the annealed
+    coefficient of the training rollout) when given, else
+    ``reward.spin_penalty_factor``. Returns (reward, done, new_potential,
+    StepInfo), each (B,)."""
+    unicycle = _unicycle(cfg)
     active = _active_mask(cfg, state.human_num)
     r = state.robot
     d = torch.linalg.norm(state.humans.pos - r.pos[:, None], dim=-1) \
@@ -361,7 +370,8 @@ def calc_reward(cfg: Config, state: EnvState, future_traj, phase: str):
     d = torch.where(active, d, torch.full_like(d, math.inf))
     collision = (d < 0.0).any(dim=-1)
     dmin = d.amin(dim=-1)
-    reaching_goal = torch.linalg.norm(r.pos - r.goal, dim=-1) < r.radius
+    goal_radius = 0.6 if unicycle else r.radius
+    reaching_goal = torch.linalg.norm(r.pos - r.goal, dim=-1) < goal_radius
 
     zero = torch.zeros_like(dmin)
     if phase == "train":
@@ -380,7 +390,8 @@ def calc_reward(cfg: Config, state: EnvState, future_traj, phase: str):
 
     timeout = state.global_time >= cfg.env.time_limit - 1.0
     pot_cur = torch.linalg.norm(r.pos - r.goal, dim=-1)
-    pot_reward = 2.0 * (-pot_cur.abs() - state.potential)
+    pot_factor = 3.0 if unicycle else 2.0
+    pot_reward = pot_factor * (-pot_cur.abs() - state.potential)
     danger_reward = ((dmin - cfg.reward.discomfort_dist)
                      * cfg.reward.discomfort_penalty_factor * cfg.env.time_step)
 
@@ -404,6 +415,12 @@ def calc_reward(cfg: Config, state: EnvState, future_traj, phase: str):
     # potential only updates on the potential-reward branch (:540-543)
     took_pot = ~(timeout | collision | reaching_goal | danger_cond)
     new_potential = torch.where(took_pot, -pot_cur.abs(), state.potential)
+    if unicycle:
+        coef = cfg.reward.spin_penalty_factor if spin_coef is None \
+            else spin_coef
+        reward = reward - coef * action_r ** 2             # :551
+        reward = reward + torch.where(action_v < 0, -2.0 * action_v.abs(),
+                                      torch.zeros_like(action_v))
     if cfg.sim.predict_method in ("const_vel", "truth"):
         K = cfg.sim.predict_steps
         rel_dist = torch.linalg.norm(future_traj[:, 1:, :, :2]
@@ -445,10 +462,12 @@ def _respawn_humans(cfg: Config, u, state: EnvState, need,
     v_pref = torch.where(need, v_pref_new, h.v_pref)
     if placed is None:
         placed = _active_mask(cfg, state.human_num) & ~need
+    # the unicycle keeps the humans half the circle away (:453-455)
+    robot_min = cfg.sim.circle_radius / 2.0 if _unicycle(cfg) else None
     pos, goal = spawn.batched_circle_spawn(
         u_pos, need, radius, cfg.sim.circle_radius, state.robot.pos,
         state.robot.goal, state.robot.radius, h.pos, h.goal, radius, placed,
-        cfg.reward.discomfort_dist)
+        cfg.reward.discomfort_dist, robot_min_dist=robot_min)
     humans = HumanState(
         pos=pos, vel=torch.where(need[..., None], torch.zeros_like(h.vel), h.vel),
         goal=goal, radius=radius, v_pref=v_pref)
@@ -475,15 +494,30 @@ def update_human_goals_randomly(cfg: Config, u, state: EnvState) -> EnvState:
     return dataclasses.replace(state, humans=dataclasses.replace(h, goal=goal))
 
 
+def end_goal_draws(cfg: Config) -> int:
+    return goal_change_draws(cfg) if _unicycle(cfg) else respawn_draws(cfg)
+
+
 def end_goal_updates(cfg: Config, u, state: EnvState) -> EnvState:
     """Humans that reached their goal are regenerated (holonomic,
-    crowd_sim_var_num.py:451-458). u (B, respawn_draws(cfg))."""
+    crowd_sim_var_num.py:451-458) or, under the unicycle, given a new goal
+    w.p. ``end_goal_change_chance`` (crowd_sim.py:453-485; JAX :483-502).
+    u (B, end_goal_draws(cfg))."""
     active = _active_mask(cfg, state.human_num)
     h = state.humans
     reached = active & (torch.linalg.norm(h.goal - h.pos, dim=-1) < h.radius)
     if not bool(reached.any()):
         return state
-    return _respawn_humans(cfg, u, state, reached)
+    if not _unicycle(cfg):
+        return _respawn_humans(cfg, u, state, reached)
+    A = cfg.sim.max_human_num
+    u_chance, u_goal = spawn.split_draws(u, (A, spawn.goal_resample_draws(A)))
+    need = reached & (u_chance <= cfg.humans.end_goal_change_chance)
+    goal = spawn.batched_goal_resample(
+        u_goal, need, h.radius, h.v_pref, cfg.sim.circle_radius,
+        state.robot.pos, state.robot.goal, state.robot.radius, h.pos, h.goal,
+        h.radius, active, cfg.reward.discomfort_dist)
+    return dataclasses.replace(state, humans=dataclasses.replace(h, goal=goal))
 
 
 def vary_draws(cfg: Config) -> int:
@@ -542,27 +576,40 @@ def vary_human_num(cfg: Config, u, state: EnvState, pred_rule: bool
 def reset(cfg: Config, gens: List[torch.Generator], device
           ) -> Tuple[EnvState, Observation]:
     """Seeded episode generation for one env per generator
-    (crowd_sim_var_num.py:303-363). With ``human_num_range > 0`` the human
-    count is drawn uniformly from [min_human_num, max_human_num] (one more
-    draw a case; none otherwise, so the fixed-count streams are unchanged)."""
-    check_supported(cfg)
+    (crowd_sim_var_num.py:303-363; JAX ``crowd_sim.py:553-611``). The
+    holonomic robot starts at a U(-arena, arena)^2 point with a goal at
+    least 8 m away, facing pi / 2, among max_human_num humans, or with
+    ``human_num_range > 0`` a count drawn uniformly from [min_human_num,
+    max_human_num] (one more draw a case; none otherwise, so the
+    fixed-count streams are unchanged). The unicycle starts on the arena
+    circle with a goal at least 4 m away and a uniform heading, among a
+    count drawn uniformly from [1, max_human_num] (crowd_sim_var_num.py
+    :78-89)."""
     A, K = cfg.sim.max_human_num, cfg.sim.predict_steps
     B = len(gens)
-    varies = cfg.sim.human_num_range > 0
-    sizes = (spawn.robot_draws(), 1, respawn_draws(cfg), int(varies))
+    unicycle = _unicycle(cfg)
+    draws_count = unicycle or cfg.sim.human_num_range > 0
+    sizes = (spawn.unicycle_robot_draws() if unicycle else spawn.robot_draws(),
+             1, respawn_draws(cfg), int(draws_count))
     u_robot, u_nd, u_humans, u_num = spawn.split_draws(
         spawn.draw_uniform(gens, sum(sizes), device), sizes)
-    pos, goal = spawn.sample_robot_position(u_robot, cfg.sim.arena_size, 8.0)
     human_num = torch.full((B,), A, dtype=torch.long, device=device)
-    if varies:
-        lo = cfg.sim.min_human_num
-        human_num = lo + _uniform_int(u_num[:, 0], human_num - lo)
+    if unicycle:
+        pos, goal, theta = spawn.sample_unicycle_robot(
+            u_robot, cfg.sim.arena_size, 4.0)
+        human_num = 1 + _uniform_int(u_num[:, 0], human_num - 1)
+    else:
+        pos, goal = spawn.sample_robot_position(u_robot, cfg.sim.arena_size,
+                                                8.0)
+        theta = torch.full((B,), math.pi / 2.0, device=device)
+        if draws_count:
+            lo = cfg.sim.min_human_num
+            human_num = lo + _uniform_int(u_num[:, 0], human_num - lo)
 
     def full(shape, v, dtype=torch.float32):
         return torch.full(shape, v, device=device, dtype=dtype)
 
-    robot = RobotState(pos=pos, vel=full((B, 2), 0.0),
-                       theta=full((B,), math.pi / 2.0), goal=goal,
+    robot = RobotState(pos=pos, vel=full((B, 2), 0.0), theta=theta, goal=goal,
                        radius=full((B,), cfg.robot.radius),
                        v_pref=full((B,), cfg.robot.v_pref))
     if cfg.env.randomize_attributes:
@@ -582,6 +629,7 @@ def reset(cfg: Config, gens: List[torch.Generator], device
         potential=-torch.linalg.norm(pos - goal, dim=-1),
         global_time=full((B,), 0.0),
         step_count=full((B,), 0, torch.long),
+        desired_velocity=full((B,), 0.0),
         orca_neighbor_dist=neighbor_dist,
         traj_buffer=full((B, L, A, 2), -999.0),
         mask_buffer=full((B, L, A), False, torch.bool),
@@ -642,25 +690,30 @@ def scripted_robot_action(cfg: Config, state: EnvState, policy: str,
 
 
 def step(cfg: Config, state: EnvState, action, phase: str,
-         robot_policy: str = "network"
+         robot_policy: str = "network", spin_coef=None
          ) -> Tuple[EnvState, Observation, torch.Tensor, torch.Tensor, StepInfo]:
     """One control step for every env (crowd_sim_var_num.py:366-460; JAX
-    ``crowd_sim.py:659-745``). ``action`` (B, 2) is the raw policy output
-    (vx, vy), clipped here; with ``robot_policy`` "orca" or "social_force"
-    the scripted robot's velocity replaces it, unclipped, as in the JAX
-    package. ``phase`` is "train" or "test"; only the test phase runs the
-    ground-truth future rollout (:694-698). With ``human_num_range > 0`` the
-    human count varies every 5 s (:727-735)."""
-    check_supported(cfg)
+    ``crowd_sim.py:659-745``). ``action`` (B, 2) is the raw policy output,
+    clipped here: (vx, vy) for the holonomic robot; (delta_v, delta_theta)
+    for the unicycle, whose speed ``desired_velocity`` accumulates delta_v
+    within +-v_pref (negative is backwards) before the differential-drive
+    integration. With ``robot_policy`` "orca" or "social_force" the
+    scripted robot's velocity replaces the action, unclipped, as in the JAX
+    package (under the unicycle its norm is the speed and the turn is 0).
+    ``phase`` is "train" or "test"; only the test phase runs the
+    ground-truth future rollout (:694-698). ``spin_coef`` overrides the
+    unicycle's spin-penalty coefficient (see calc_reward). With
+    ``human_num_range > 0`` the human count varies every 5 s (:727-735)."""
     if phase not in ("train", "test"):
         raise ValueError(f"phase must be 'train' or 'test', got {phase!r}")
     if robot_policy not in ROBOT_POLICIES:
         raise ValueError(f"robot_policy must be one of {ROBOT_POLICIES}, "
                          f"got {robot_policy!r}")
+    unicycle = _unicycle(cfg)
     # this step's random numbers, a fixed count per env whatever happens
     varies = cfg.sim.human_num_range > 0
     sizes = ((goal_change_draws(cfg) if cfg.humans.random_goal_changing else 0),
-             (respawn_draws(cfg) if cfg.humans.end_goal_changing else 0),
+             (end_goal_draws(cfg) if cfg.humans.end_goal_changing else 0),
              (vary_draws(cfg) if varies else 0))
     u_goal, u_end, u_vary = spawn.split_draws(
         spawn.draw_uniform(state.gens, sum(sizes), action.device), sizes)
@@ -673,19 +726,37 @@ def step(cfg: Config, state: EnvState, action, phase: str,
                            and cfg.sim.predict_method != "none"):
         truth = calc_human_future_traj(cfg, state, state.visible_masks,
                                        "truth")
-    if robot_policy == "network":
-        a = kinematics.clip_holonomic_action(action, state.robot.v_pref)
-    else:
+    action_v = action_r = None
+    if robot_policy != "network":
         a = scripted_robot_action(cfg, state, robot_policy, truth)
+        if unicycle:
+            action_v = torch.linalg.norm(a, dim=-1)
+            action_r = torch.zeros_like(action_v)
+    elif unicycle:
+        a = kinematics.clip_unicycle_action(action)
+        v_pref = state.robot.v_pref
+        action_v = torch.minimum(torch.maximum(
+            state.desired_velocity + a[:, 0], -v_pref), v_pref)
+        action_r = a[:, 1]
+        state = dataclasses.replace(state, desired_velocity=action_v)
+    else:
+        a = kinematics.clip_holonomic_action(action, state.robot.v_pref)
     human_actions = get_human_actions(cfg, state)
 
     if phase == "test":
         state = dataclasses.replace(state, human_future_traj=truth)
     reward, done, new_potential, info = calc_reward(
-        cfg, state, state.human_future_traj, phase)
+        cfg, state, state.human_future_traj, phase, action_v, action_r,
+        spin_coef)
 
-    r_pos, r_vel = kinematics.step_holonomic(state.robot.pos, a,
-                                             cfg.env.time_step)
+    if unicycle:
+        r_pos, r_theta, r_vel = kinematics.step_unicycle(
+            state.robot.pos, state.robot.theta, action_v, action_r,
+            cfg.env.time_step)
+    else:
+        r_pos, r_vel = kinematics.step_holonomic(state.robot.pos, a,
+                                                 cfg.env.time_step)
+        r_theta = state.robot.theta
     active = _active_mask(cfg, state.human_num)
     h = state.humans
     h_pos = torch.where(active[..., None],
@@ -693,7 +764,8 @@ def step(cfg: Config, state: EnvState, action, phase: str,
     h_vel = torch.where(active[..., None], human_actions, h.vel)
     state = dataclasses.replace(
         state, potential=new_potential,
-        robot=dataclasses.replace(state.robot, pos=r_pos, vel=r_vel),
+        robot=dataclasses.replace(state.robot, pos=r_pos, vel=r_vel,
+                                  theta=r_theta),
         humans=dataclasses.replace(h, pos=h_pos, vel=h_vel),
         global_time=state.global_time + cfg.env.time_step,
         step_count=state.step_count + 1)

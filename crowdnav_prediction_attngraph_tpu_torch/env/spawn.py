@@ -50,6 +50,28 @@ def sample_robot_position(u, arena_size: float, min_goal_dist: float):
     return chosen[:, :2], chosen[:, 2:]
 
 
+def unicycle_robot_draws() -> int:
+    return 2 + 2 * ROBOT_CANDIDATES
+
+
+def sample_unicycle_robot(u, arena_size: float, min_goal_dist: float):
+    """Unicycle robot spawn (``spawn.py:35-47``; crowd_sim_var_num.py:78-87):
+    the robot on the arena circle at a uniform angle, its goal the first of
+    ``ROBOT_CANDIDATES`` U(-arena, arena)^2 draws at least min_goal_dist
+    away (-pos when none is), its heading uniform on [0, 2 pi).
+    u (B, unicycle_robot_draws()): the angle, the candidates, the heading.
+    Returns (pos (B, 2), goal (B, 2), theta (B,))."""
+    B = u.shape[0]
+    u_angle, u_goal, u_theta = split_draws(u, (1, 2 * ROBOT_CANDIDATES, 1))
+    angle = u_angle[:, 0] * TWO_PI
+    pos = arena_size * torch.stack([torch.cos(angle), torch.sin(angle)], -1)
+    g = (u_goal.reshape(B, ROBOT_CANDIDATES, 2) * 2.0 - 1.0) * arena_size
+    ok = torch.linalg.norm(pos[:, None] - g, dim=-1) >= min_goal_dist
+    first = g[torch.arange(B, device=u.device), ok.to(torch.uint8).argmax(1)]
+    goal = torch.where(ok.any(dim=1)[:, None], first, -pos)
+    return pos, goal, u_theta[:, 0] * TWO_PI
+
+
 def circle_spawn_draws(A: int) -> int:
     return 3 * A * (SPAWN_ROUNDS + 1)
 

@@ -55,6 +55,7 @@ class EnvState:
     potential: torch.Tensor          # (B,)
     global_time: torch.Tensor        # (B,)
     step_count: torch.Tensor         # (B,) int64
+    desired_velocity: torch.Tensor   # (B,) the unicycle's accumulated speed
     orca_neighbor_dist: torch.Tensor  # (B,)
     traj_buffer: torch.Tensor        # (B, L, A, 2) GST history (L = 0
     mask_buffer: torch.Tensor        # (B, L, A) bool   without GST)

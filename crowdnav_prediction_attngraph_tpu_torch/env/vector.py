@@ -37,14 +37,17 @@ def vec_reset_with_pretext(cfg: Config, gens: List[torch.Generator],
 
 
 def vec_step(cfg: Config, states: EnvState, actions, phase: str,
-             gst_model: Optional[STModel]):
+             gst_model: Optional[STModel], spin_coef=None):
     """Batched step with auto-reset (``vector.py:54-93``). Returns (states',
     obs', rewards (B,), dones (B,), infos, pretext penalties (B,)); the
     penalty is also inside the rewards and is returned on its own so episode
     returns can leave it out, as the reference's Monitor does. Only the
     ``inferred`` env runs the GST pretext (``gst_model``); elsewhere the
-    penalty is 0."""
-    states, obs, rew, done, info = crowd_sim.step(cfg, states, actions, phase)
+    penalty is 0. ``spin_coef`` goes to ``crowd_sim.step`` (the unicycle's
+    annealed spin penalty). A done env's fresh state starts its unicycle
+    speed ``desired_velocity`` at 0 again."""
+    states, obs, rew, done, info = crowd_sim.step(cfg, states, actions, phase,
+                                                  spin_coef=spin_coef)
     idx = done.nonzero()[:, 0]
     if idx.numel():
         fresh_states, fresh_obs = crowd_sim.reset(

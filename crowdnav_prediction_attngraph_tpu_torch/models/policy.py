@@ -17,24 +17,28 @@ from ..utils.device import resolve_device
 from ..utils.params import params_tree, tree_to_state_dict
 from . import distributions
 from .policy_net import SelfAttnMergeSRNN
+from .srnn import SRNN
 
 # dense layers the JAX package initialises orthogonal(sqrt 2)
-# (``policy_net.py:259-311``)
-_ORTH2 = ("robot_linear", "spatial_linear", "critic_0", "critic_1",
-          "actor_0", "actor_1", "critic_linear")
+# (``policy_net.py:259-311``, ``srnn.py:121-132``)
+_ORTH2 = ("robot_linear", "spatial_linear", "spatial_linear_0",
+          "spatial_linear_1", "critic_0", "critic_1", "actor_0", "actor_1",
+          "critic_linear")
+BASES = {"selfAttn_merge_srnn": SelfAttnMergeSRNN, "srnn": SRNN}
 
 
 class PolicyHead(nn.Module):
     """Base network + DiagGaussian action head; submodules ``base`` and
-    ``dist`` as in the flax tree."""
+    ``dist`` as in the flax tree. The base is the attention-graph policy or,
+    with ``robot.policy == "srnn"``, DS-RNN (``policy.py:24-27``)."""
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.robot.policy != "selfAttn_merge_srnn":
-            raise NotImplementedError(
-                f"robot policy {cfg.robot.policy!r} is not ported yet")
+        if cfg.robot.policy not in BASES:
+            raise ValueError(f"unknown robot policy {cfg.robot.policy!r}, "
+                             f"expected one of {sorted(BASES)}")
         self.cfg = cfg
-        self.base = SelfAttnMergeSRNN(cfg)
+        self.base = BASES[cfg.robot.policy](cfg)
         self.dist = distributions.DiagGaussianParams(
             cfg.network.human_node_output_size, 2)
 

@@ -14,9 +14,17 @@ The human-human attention has two branches, as in the JAX package:
     fused_graph_attention`` runs QKV projection, masked attention and
     out-projection in one launch of K1, with K2 as its backward;
   * the einsum branch (``policy_net.py:140-170``), plain PyTorch.
-The ring-attention branch and the ``use_self_attn`` / ``use_hr_attn`` /
-``sort_humans`` ablations (all True in every shipped config) are not ported
-yet and raise.
+``use_ring_attention`` runs these same branches: the port has no process
+group, and the JAX package without a mesh does the same
+(``policy_net.py:147-160``); the ring over ``torch.distributed``, the same
+math sharded over the agent axis, is not ported.
+
+The ablations of the paper's comparison (``policy_net.py:245-296``):
+``sort_humans=False`` masks the attention with the env's visibility (a
+scattered mask, not a prefix; column 0 is kept valid on rows that see
+nobody); ``use_self_attn=False`` replaces the human-human attention by two
+dense layers, so no kernel runs; ``use_hr_attn=False`` replaces the
+robot-human attention by the mean over all A humans, padded ones included.
 """
 
 from __future__ import annotations
@@ -175,24 +183,25 @@ class EndRNN(nn.Module):
 class SelfAttnMergeSRNN(nn.Module):
     """The policy base (``policy_net.py:223-319``). Consumes time-major obs
     [T, N, ...]; returns (value [T, N, 1], actor_features [T, N, 256],
-    new_hidden)."""
+    new_hidden). Only the submodules of the configured ablation exist, as
+    in the flax tree."""
 
     def __init__(self, cfg: Config):
         super().__init__()
         self.cfg = cfg
         net = cfg.network
-        if net.use_ring_attention or not (net.use_self_attn and
-                                          net.use_hr_attn and net.sort_humans):
-            raise NotImplementedError(
-                "not ported yet: ring attention, use_self_attn/use_hr_attn/"
-                "sort_humans = False")
         robot_in = 2 + 7   # temporal_edges (vx, vy) + robot_node
         self.robot_linear = nn.Linear(robot_in, 256)
-        self.spatial_attn = SpatialEdgeSelfAttn(
-            cfg.spatial_edge_dim, net.attn_size, net.num_attn_heads,
-            kernel_dtype=net.pallas_dtype)
-        self.spatial_linear = nn.Linear(net.attn_size, 256)
-        self.attn = EdgeAttentionM(net.attention_size)
+        if net.use_self_attn:
+            self.spatial_attn = SpatialEdgeSelfAttn(
+                cfg.spatial_edge_dim, net.attn_size, net.num_attn_heads,
+                kernel_dtype=net.pallas_dtype)
+            self.spatial_linear = nn.Linear(net.attn_size, 256)
+        else:
+            self.spatial_linear_0 = nn.Linear(cfg.spatial_edge_dim, 128)
+            self.spatial_linear_1 = nn.Linear(128, 256)
+        if net.use_hr_attn:
+            self.attn = EdgeAttentionM(net.attention_size)
         self.humanNodeRNN = EndRNN(net.human_node_rnn_size,
                                    net.human_node_output_size,
                                    net.human_node_embedding_size)
@@ -203,25 +212,40 @@ class SelfAttnMergeSRNN(nn.Module):
 
     def forward(self, obs: Dict[str, torch.Tensor], rnn_hxs, masks,
                 use_kernel: bool):
-        cfg = self.cfg
+        net = self.cfg.network
         T, N = masks.shape
-        A = cfg.sim.max_human_num
+        A = self.cfg.sim.max_human_num
         rows = T * N
         robot_node = obs["robot_node"].reshape(T, N, 1, -1)
         temporal_edges = obs["temporal_edges"].reshape(T, N, 1, -1)
         spatial_edges = obs["spatial_edges"].reshape(rows, A, -1)
 
-        # humans are sorted by distance: the first detected_human_num are valid
-        attn_mask = create_attn_mask(
-            obs["detected_human_num"].reshape(rows).long(), A)
+        if net.sort_humans:
+            # the detected humans come first: a prefix mask
+            attn_mask = create_attn_mask(
+                obs["detected_human_num"].reshape(rows).long(), A)
+        else:
+            # the env's visibility, column 0 valid where nothing is
+            # (selfAttn_srnn_temp_node.py:351-356, 383)
+            attn_mask = obs["visible_masks"].reshape(rows, A).bool()
+            none_visible = ~attn_mask.any(dim=-1)
+            attn_mask = torch.cat([(attn_mask[:, 0] | none_visible)[:, None],
+                                   attn_mask[:, 1:]], dim=1)
 
         robot_states = F.relu(self.robot_linear(
             torch.cat([temporal_edges, robot_node], dim=-1)))  # (T, N, 1, 256)
 
-        out_sp = F.relu(self.spatial_linear(
-            self.spatial_attn(spatial_edges, attn_mask, use_kernel)))
-        weighted, _ = self.attn(robot_states.reshape(rows, 1, 256), out_sp,
-                                attn_mask)
+        if net.use_self_attn:
+            out_sp = F.relu(self.spatial_linear(self.spatial_attn(
+                spatial_edges, attn_mask, use_kernel)))
+        else:
+            out_sp = F.relu(self.spatial_linear_1(F.relu(
+                self.spatial_linear_0(spatial_edges))))       # (rows, A, 256)
+        if net.use_hr_attn:
+            weighted, _ = self.attn(robot_states.reshape(rows, 1, 256),
+                                    out_sp, attn_mask)
+        else:
+            weighted = out_sp.mean(dim=1, keepdim=True)
         weighted = weighted.reshape(T, N, 1, 256)
 
         outputs, h_new = self.humanNodeRNN(
@@ -234,10 +258,18 @@ class SelfAttnMergeSRNN(nn.Module):
 
 
 def init_hidden(cfg: Config, n_envs: int, device):
-    """Fresh recurrent state (``policy_net.py:322-333``). The JAX package's
-    edge-RNN slot is left out: this model never reads it."""
-    return {"human_node_rnn": torch.zeros(
-        (n_envs, 1, cfg.network.human_node_rnn_size), device=device)}
+    """Fresh recurrent state (``policy_net.py:322-333``): the node GRU's
+    (N, 1, 128), and for DS-RNN (``robot.policy == "srnn"``) its edge GRUs'
+    (N, A + 1, 256) in ``human_human_edge_rnn``. The flagship never reads
+    that slot (the JAX package re-zeroes it every call), so it has none."""
+    net = cfg.network
+    hidden = {"human_node_rnn": torch.zeros(
+        (n_envs, 1, net.human_node_rnn_size), device=device)}
+    if cfg.robot.policy == "srnn":
+        hidden["human_human_edge_rnn"] = torch.zeros(
+            (n_envs, cfg.sim.max_human_num + 1, net.human_human_edge_rnn_size),
+            device=device)
+    return hidden
 
 
 def obs_to_dict(obs) -> Dict[str, torch.Tensor]:

@@ -68,11 +68,12 @@ def _parser():
                    help="fixed human v_pref/radius")
     p.add_argument("--kinematics", default=None,
                    choices=["holonomic", "unicycle"],
-                   help="robot action space (unicycle is not ported yet)")
+                   help="robot action space")
     p.add_argument("--robot-v-pref", type=float, default=None,
                    help="robot max speed")
     p.add_argument("--spin-warmup-steps", type=int, default=0,
-                   help="unicycle spin-penalty warmup (not ported yet)")
+                   help="anneal the unicycle spin penalty linearly from 0 "
+                        "over this many env steps")
     p.add_argument("--resume", default=None,
                    help="checkpoint directory of a port run to resume from")
     p.add_argument("--init-params-from", default=None,
@@ -102,9 +103,6 @@ def _warm_start_path(path: str, step) -> str:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.kinematics == "unicycle" or args.spin_warmup_steps:
-        raise NotImplementedError(
-            "not ported yet: the unicycle robot and its spin-penalty warmup")
     device = resolve_device(args.device)
     cfg = build_config(args)
     os.makedirs(args.output_dir, exist_ok=True)

@@ -19,6 +19,7 @@ import crowdnav_prediction_attngraph_tpu_torch.train
 import crowdnav_prediction_attngraph_tpu_torch.algo.ppo
 import crowdnav_prediction_attngraph_tpu_torch.algo.gae
 import crowdnav_prediction_attngraph_tpu_torch.env.vector
+import crowdnav_prediction_attngraph_tpu_torch.models.srnn
 import crowdnav_prediction_attngraph_tpu_torch.utils.checkpoint
 import crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention
 import crowdnav_prediction_attngraph_tpu_torch.ops.bench_edges

@@ -28,6 +28,13 @@ take and refuse only what the wrappers check (non-contiguous inputs). K1,
 like K2, gives the same bits on two runs: every sum runs in a fixed order,
 without atomics.
 
+K1 and K2 are also held under scattered masks (the policy's
+``sort_humans=False`` masks: about half the keys valid in no prefix order,
+a row with only column 0 valid) at the paths' shapes (64 and 960 rows x A
+= 20, and 32 x 10), at A = 80 and 257 (the tiled attention, where whole
+key chunks can be masked), to the same tolerances, with two runs giving
+the same bits.
+
 K3 tolerance: atol 2e-5 (the JAX kernel's own bound against its reference,
 tests/test_pallas_attention.py:15-26), for f32 and for bf16 q, k, v (read as
 bf16, computed in f32, as the plain version computes on their f32 casts); an
@@ -151,6 +158,57 @@ def test_k1_rejects_what_it_does_not_take(cuda_device):
     with pytest.raises(ValueError):
         fused_graph_attention(args[0].transpose(0, 1).contiguous()
                               .transpose(0, 1), *args[1:], HEADS)
+
+
+def scattered_mask(rows, a, seed, device):
+    """About half the keys valid in no prefix order; row 0 with only column
+    0 valid; rows 1 and 2 with their first 64 keys masked (whole key chunks
+    of the tiled attention past A = 64)."""
+    mask = torch.rand(rows, a, generator=torch.Generator().manual_seed(
+        seed)) < 0.5
+    mask[0] = False
+    if a > 64:
+        mask[1:3, :64] = False
+    mask[~mask.any(-1), 0] = True
+    return mask.to(device)
+
+
+SCATTERED = [(64, 20), (960, 20), (32, 10), (3, 80), (2, 257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,a", SCATTERED)
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 3e-4),
+                                        (torch.bfloat16, 3e-2)])
+def test_k1_matches_plain_scattered_mask(cuda_device, rows, a, dtype, atol):
+    args = k1_inputs(rows, a, rows + a + 1, cuda_device)
+    args[1] = scattered_mask(rows, a, rows + a, cuda_device)
+    got = fused_graph_attention(*args, HEADS, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    expect = reference_fused_graph_attention(*args, HEADS, compute_dtype=dtype)
+    torch.testing.assert_close(got, expect, rtol=0, atol=atol)
+    assert torch.equal(got, fused_graph_attention(*args, HEADS,
+                                                  compute_dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,a", SCATTERED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_matches_plain_scattered_mask(cuda_device, rows, a, dtype):
+    x, _, w_qkv, b_qkv, w_out, _ = k1_inputs(rows, a, rows + a + 2,
+                                             cuda_device)
+    mask = scattered_mask(rows, a, rows + a + 3, cuda_device)
+    g = torch.randn(rows, a, D, generator=torch.Generator().manual_seed(
+        rows + a)).to(cuda_device)
+    args = (x, mask, w_qkv, b_qkv, w_out, g)
+    got = fused_graph_attention_backward(*args, HEADS, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    expect = reference_fused_graph_attention_backward(*args, HEADS,
+                                                      compute_dtype=dtype)
+    assert_k2_close(got, expect, dtype)
+    again = fused_graph_attention_backward(*args, HEADS, compute_dtype=dtype)
+    for t, u in zip(got, again):
+        assert torch.equal(t, u)
 
 
 def k2_inputs(rows, a, seed, device, d=D):

@@ -25,6 +25,10 @@ plain versions on the card by tests/test_torch_kernels_cuda.py.
   entry of each gradient (bf16 keeps 8 significant bits, 3.9e-3 relative
   per ulp; sums in another order move a rounding by one ulp, and a dqkv or
   dS entry one ulp off feeds every product after it);
+* K1 and K2 under scattered masks (the policy's ``sort_humans=False``
+  hands them the env's visibility: about half the keys valid, in no prefix
+  order, and rows with only column 0 valid), plain against the JAX Pallas
+  kernels in interpret mode, f32 and bf16, at the bounds above;
 * the autograd.Function on the CPU: its backward (plain K2) equals
   autograd through the plain K1 in f32 to 1e-5 (same math, sums in another
   order), with an all-masked row, whose dx must be exactly 0. The JAX
@@ -65,6 +69,18 @@ def inputs(rows, A, D=512, seed=0):
     return x, mask, w_qkv, b_qkv, w_out, b_out
 
 
+def scattered(rows, A, seed):
+    """A seeded key mask with about half the keys valid in no prefix order,
+    rows 0 and 1 with only column 0 valid (the policy's fallback for rows
+    that see nobody)."""
+    mask = np.random.RandomState(seed).rand(rows, A) < 0.5
+    mask[:2] = False
+    mask[~mask.any(-1), 0] = True
+    prefix = np.arange(A)[None] < mask.sum(-1)[:, None]
+    assert (mask != prefix).any(-1).mean() > 0.5
+    return mask
+
+
 def torch_args(arrs, device="cpu"):
     return [torch.from_numpy(a).to(device) for a in arrs]
 
@@ -81,6 +97,19 @@ def test_plain_matches_jax_reference_f32(rows, A):
     (torch.float32, jnp.float32, 3e-4), (torch.bfloat16, jnp.bfloat16, 2e-2)])
 def test_plain_matches_jax_kernel_interpret(dtype, jdtype, atol):
     arrs = inputs(16, 20, seed=3)
+    expect = np.asarray(j_fused_graph_attention(
+        *[jnp.asarray(a) for a in arrs], 8, compute_dtype=jdtype,
+        interpret=True))
+    got = fused_graph_attention(*torch_args(arrs), 8, compute_dtype=dtype)
+    np.testing.assert_allclose(got.numpy(), expect, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,jdtype,atol", [
+    (torch.float32, jnp.float32, 3e-4), (torch.bfloat16, jnp.bfloat16, 2e-2)])
+def test_plain_matches_jax_kernel_interpret_scattered_mask(dtype, jdtype,
+                                                           atol):
+    arrs = list(inputs(16, 20, seed=4))
+    arrs[1] = scattered(16, 20, seed=4)
     expect = np.asarray(j_fused_graph_attention(
         *[jnp.asarray(a) for a in arrs], 8, compute_dtype=jdtype,
         interpret=True))
@@ -178,6 +207,27 @@ def test_plain_backward_matches_jax_kernel_interpret(rows, A, r_blk, dtype,
     expect = j_fused_backward(
         *[jnp.asarray(a) for a in (x, mask, w_qkv, b_qkv, w_out, b_out, g)],
         8, r_blk, jdtype, None, True)
+    got = reference_fused_graph_attention_backward(
+        *torch_args((x, mask, w_qkv, b_qkv, w_out, g)), 8, dtype)
+    for name, t, e in zip(GRADS, got, expect):
+        e = np.asarray(e)
+        if dtype == torch.float32:
+            np.testing.assert_allclose(t.numpy(), e, atol=5e-3, rtol=1e-3,
+                                       err_msg=name)
+        else:
+            assert np.abs(t.numpy() - e).max() <= 1e-2 * np.abs(e).max(), name
+
+
+@pytest.mark.parametrize("dtype,jdtype", [(torch.float32, "f32"),
+                                          (torch.bfloat16, "bf16")])
+def test_plain_backward_matches_jax_kernel_interpret_scattered_mask(dtype,
+                                                                    jdtype):
+    x, _, w_qkv, b_qkv, w_out, b_out = inputs(16, 20, seed=5)
+    mask = scattered(16, 20, seed=5)
+    g = cotangent(16, 20, seed=5)
+    expect = j_fused_backward(
+        *[jnp.asarray(a) for a in (x, mask, w_qkv, b_qkv, w_out, b_out, g)],
+        8, None, jdtype, None, True)
     got = reference_fused_graph_attention_backward(
         *torch_args((x, mask, w_qkv, b_qkv, w_out, g)), 8, dtype)
     for name, t, e in zip(GRADS, got, expect):

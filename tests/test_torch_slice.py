@@ -90,6 +90,7 @@ def to_port_state(js, gens) -> EnvState:
         visible_masks=_t(js.visible_masks),
         potential=_t(js.potential), global_time=_t(js.global_time),
         step_count=_t(js.step_count).long(),
+        desired_velocity=_t(js.desired_velocity),
         orca_neighbor_dist=_t(js.orca_neighbor_dist),
         traj_buffer=_t(js.traj_buffer), mask_buffer=_t(js.mask_buffer),
         human_future_traj=_t(js.human_future_traj))
