@@ -99,7 +99,24 @@ Phases, each printing one JSON line with its seconds before the next starts:
    ``init_params`` (rates printed, not gated): 32 cases cut at 40 steps,
    then one PPO iteration (64 envs x 30 steps), the counts read for each:
    K1 in the first two and never in the last two, K2 in the first two
-   updates; the gradient check on ``sort_humans=False``'s.
+   updates; the gradient check on ``sort_humans=False``'s;
+12. gst_train: the GST training stack through the port's entry points.
+   ``collect_dataset`` on the card (CrowdSimVarNum, 20 ORCA humans: 16
+   envs x 256 steps from seed 0 for train, 4 x 256 from seed 1 for val),
+   the records checked as tests/test_gst_training.py:24-32 checks them
+   and written as txt files, windows loaded from them (32 slots, obs 5,
+   pred 5); one Adam step on the card and one on the CPU from one
+   ``init_gst`` and one batch of 64 (loss relative error <= 1e-4, each
+   gradient leaf <= 1e-4 of its largest entry, params <= 1e-5 absolute
+   where the CPU gradient is >= 1e-6; Adam's first step moves the others,
+   rounding noise such as the attention's k bias, anywhere within lr); the
+   untrained model's val aoe/foe, then ``trainer.train`` at the JAX
+   recipe's full width (``PredConfig()``, batch 64, lr 1e-3) for 4 epochs
+   from that init; fails on a non-finite loss or unless the last epoch's
+   val aoe and foe are both <= half the untrained model's; the written
+   ``epoch_4/params.npz`` reloaded with ``load_gst`` as the flagship env's
+   predictor, one ``pretext_process`` batch and ``gst_predict`` on it must
+   be finite; K1, K2 and K3 must not launch.
 
 The kernels line also gives each kernel's device launches per call and the
 registers and spills that ptxas reported for each of its CUDA functions.
@@ -123,17 +140,26 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from crowdnav_prediction_attngraph_tpu_torch import train as train_cli
+from crowdnav_prediction_attngraph_tpu_torch.collect_data import (
+    collect_dataset, write_records)
 from crowdnav_prediction_attngraph_tpu_torch.algo import evaluation
 from crowdnav_prediction_attngraph_tpu_torch.algo import ppo
 from crowdnav_prediction_attngraph_tpu_torch.config import (
-    build_config, config_from_snapshot, pred_config, varnum_config)
+    PredConfig, build_config, config_from_snapshot, pred_config,
+    varnum_config)
 from crowdnav_prediction_attngraph_tpu_torch.env import crowd_sim
 from crowdnav_prediction_attngraph_tpu_torch.env.pretext import pretext_process
 from crowdnav_prediction_attngraph_tpu_torch.models import policy as pmod
-from crowdnav_prediction_attngraph_tpu_torch.models.gst.predictor import load_gst
+from crowdnav_prediction_attngraph_tpu_torch.models.gst import (
+    dataset as gst_dataset, eval as gst_eval, trainer as gst_trainer)
+from crowdnav_prediction_attngraph_tpu_torch.models.gst.predictor import (
+    gst_predict, load_gst)
+from crowdnav_prediction_attngraph_tpu_torch.models.gst.st_model import (
+    init_gst)
 from crowdnav_prediction_attngraph_tpu_torch.models.policy_net import (
     init_hidden, obs_to_dict)
 from crowdnav_prediction_attngraph_tpu_torch.ops import (
@@ -145,6 +171,8 @@ from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
 from crowdnav_prediction_attngraph_tpu_torch.test import (
     DEFAULT_GST_PARAMS, DEFAULT_PARAMS)
 from crowdnav_prediction_attngraph_tpu_torch.utils import checkpoint
+from crowdnav_prediction_attngraph_tpu_torch.utils.params import (
+    flatten_tree, state_dict_to_tree)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL_DIR = os.path.join(REPO, "trained_models",
@@ -189,6 +217,18 @@ ANY_K12 = ((64, 300, D, HEADS), (960, 257, D, HEADS), (960, A, 1088, HEADS),
            (960, A, 1024, 4), (960, A, 100, 4))
 REPS_ANY = {(64, 300): 3, (960, 257): 2, (960, A): 10}
 ANY_K3 = ((1024, 20, 1280, 4), (1024, 20, 2048, 4))
+# gst_train: the collect (train and val envs x steps, 20 ORCA humans), the
+# JAX recipe's batch and as many epochs as fit the phase's 45 s
+GST_TRAIN_ENVS, GST_VAL_ENVS, GST_STEPS = 16, 4, 256
+GST_BATCH, GST_EPOCHS, GST_LR = 64, 4, 1e-3
+# one Adam step on the card against the CPU: the loss (relative), each
+# gradient leaf (relative to its largest entry) and the params (absolute)
+# where the gradient is resolved. Adam's first step moves a param by lr x
+# g / (|g| + 1e-8): an entry whose gradient is rounding noise (the
+# attention's k bias, 0 in exact arithmetic, and any entry below 1e-6 on
+# the CPU) moves by an unresolved amount in (-lr, lr) on either device
+GST_LOSS_REL, GST_GRAD_REL, GST_PARAM_ABS = 1e-4, 1e-4, 1e-5
+GST_RESOLVED = 1e-6
 # NVIDIA H100 SXM data-sheet peaks (dense) and memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
@@ -1144,6 +1184,152 @@ def phase_policy_variants(gst, device) -> dict:
     return total
 
 
+def _gst_step(pc, tree, batch, device) -> tuple:
+    """One Adam step of the port's trainer on ``device`` from ``tree``:
+    (loss, the flat gradients, the flat params after the step)."""
+    model = load_gst(pc, tree, device).train()
+    opt = gst_trainer.make_optimizer(model, GST_LR)
+    loss, _ = gst_trainer.loss_fn(model, gst_trainer.to_device(batch, device),
+                                  0.5, False)
+    loss.backward()
+    grads = flatten_tree(state_dict_to_tree(
+        {n: p.grad for n, p in model.named_parameters()}))
+    opt.step()
+    return (loss.item(), grads,
+            flatten_tree(state_dict_to_tree(model.state_dict())))
+
+
+def _gst_card_vs_cpu(pc, tree, batch, device) -> dict:
+    """One Adam step on the card and on the CPU from the same params and
+    batch, held to GST_LOSS_REL, GST_GRAD_REL and, on the entries whose CPU
+    gradient is >= GST_RESOLVED, GST_PARAM_ABS; the others to lr."""
+    loss_d, g_d, p_d = _gst_step(pc, tree, batch, device)
+    loss_c, g_c, p_c = _gst_step(pc, tree, batch, "cpu")
+    p0 = flatten_tree(tree)
+    grad_rel = param_err = free_step = 0.0
+    worst, unresolved = None, 0
+    for k in p_c:
+        grad_rel = max(grad_rel, float(np.abs(g_d[k] - g_c[k]).max()
+                                       / max(np.abs(g_c[k]).max(), 1e-30)))
+        res = np.abs(g_c[k]) >= GST_RESOLVED
+        unresolved += int((~res).sum())
+        err = float(np.abs(p_d[k] - p_c[k])[res].max(initial=0.0))
+        if err > param_err:
+            param_err, worst = err, k
+        free_step = max(free_step, *(float(np.abs(p[k] - p0[k])[~res]
+                                           .max(initial=0.0))
+                                     for p in (p_d, p_c)))
+    out = {"loss_rel_err": abs(loss_d - loss_c) / abs(loss_c),
+           "grad_max_rel_err_by_leaf_max": grad_rel,
+           "params_max_abs_err_resolved": param_err,
+           "params_worst_leaf": worst, "unresolved_entries": unresolved,
+           "entries": sum(v.size for v in p_c.values()),
+           "unresolved_max_step": free_step}
+    if not (out["loss_rel_err"] <= GST_LOSS_REL and grad_rel <= GST_GRAD_REL
+            and param_err <= GST_PARAM_ABS
+            and free_step <= GST_LR * (1 + 1e-6)):
+        fail(f"gst_train: one Adam step on the card vs the CPU: {out}")
+    return out
+
+
+def phase_gst_train(cfg, device, smi) -> dict:
+    """The GST training stack through the port's entry points: collect ORCA
+    crowds on the card, load windows from the written files, hold one Adam
+    step on the card against the CPU, train, reload the checkpoint for the
+    env's predictor. No K1/K2/K3 on this path: their counts must stay 0."""
+    t0 = time.perf_counter()
+    zero_counts()
+    env_cfg = varnum_config(human_num=20)
+    pc = PredConfig()
+    t_c = time.perf_counter()
+    train_rows = collect_dataset(env_cfg, GST_TRAIN_ENVS, GST_STEPS, seed=0,
+                                 device=device)
+    val_rows = collect_dataset(env_cfg, GST_VAL_ENVS, GST_STEPS, seed=1,
+                               device=device)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t_c
+    for i, rows in enumerate(train_rows + val_rows):
+        if (len(rows) == 0 or np.any(np.diff(rows[:, 0]) < 0)
+                or np.any(rows[:, 1] < 0)
+                or not np.all(np.isfinite(rows[:, 2:]))
+                or np.any(np.abs(rows[:, 2:]) >= 30)):
+            fail(f"gst_train: env {i}'s records fail the collect checks "
+                 "(empty, frames not increasing, a negative id, or a "
+                 "position not finite or past 30 m)")
+    with tempfile.TemporaryDirectory() as d:
+        t_w = time.perf_counter()
+        for split, rows in (("train", train_rows), ("test", val_rows)):
+            write_records(os.path.join(d, "data", split), rows)
+        train_w, val_w = (gst_dataset.load_dataset(
+            os.path.join(d, "data", split), pc.obs_seq_len, pc.pred_seq_len,
+            32, cache=False) for split in ("train", "test"))
+        windows_s = time.perf_counter() - t_w
+
+        # one Adam step on the card and on the CPU, f32 without TF32
+        tree = state_dict_to_tree(init_gst(
+            pc, torch.Generator().manual_seed(1000), "cpu").state_dict())
+        card_vs_cpu = _gst_card_vs_cpu(
+            pc, tree, gst_trainer.stack_windows(train_w[:GST_BATCH]), device)
+
+        untrained = gst_eval.evaluate_dataset(
+            load_gst(pc, tree, device), val_w, batch_size=GST_BATCH)
+        torch.cuda.synchronize()
+        t_t = time.perf_counter()
+        out = os.path.join(d, "run")
+        _, hist = gst_trainer.train(
+            pc, train_w, val_w, out, epochs=GST_EPOCHS, lr=GST_LR,
+            batch_size=GST_BATCH, save_epochs=GST_EPOCHS, params=tree,
+            device=device)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t_t
+        params = os.path.join(out, f"epoch_{GST_EPOCHS}", "params.npz")
+        gst = load_gst(cfg.pred, params, device)
+        gens = [evaluation.case_generator(cfg.ppo.seed, i) for i in range(16)]
+        st, ob = crowd_sim.reset(cfg, gens, device)
+        st, ob, rew, _ = pretext_process(cfg, gst, st, ob,
+                                         torch.zeros(16, device=device))
+        traj, _ = gst_predict(gst, st.traj_buffer[:, ::cfg.pred_interval]
+                              .transpose(1, 2),
+                              st.mask_buffer[:, ::cfg.pred_interval]
+                              .transpose(1, 2))
+        pred_finite = bool(torch.isfinite(traj).all()
+                           and torch.isfinite(ob.spatial_edges).all()
+                           and torch.isfinite(rew).all())
+    torch.cuda.synchronize()
+    launches = read_counts()
+    steps = len(train_w) // GST_BATCH
+    epochs = [{k: hist[k][e] for k in hist} for e in range(GST_EPOCHS)]
+    for e in epochs:
+        e["ms_per_train_step"] = 1e3 * e["train_seconds"] / steps
+    last = epochs[-1]
+    emit("gst_train", t0, nvidia_smi=smi,
+         records={"train": sum(len(r) for r in train_rows),
+                  "val": sum(len(r) for r in val_rows)},
+         envs={"train": GST_TRAIN_ENVS, "val": GST_VAL_ENVS},
+         collect_steps=GST_STEPS, collect_seconds=collect_s,
+         windows={"train": len(train_w), "val": len(val_w)},
+         windows_seconds=windows_s, batch=GST_BATCH,
+         train_steps_per_epoch=steps,
+         card_vs_cpu=card_vs_cpu,
+         untrained_val=untrained, epochs=epochs, train_seconds=train_s,
+         ms_per_train_step=min(e["ms_per_train_step"] for e in epochs),
+         checkpoint=f"epoch_{GST_EPOCHS}/params.npz",
+         predictor_finite=pred_finite, launches=launches)
+    if not all(math.isfinite(e[k]) for e in epochs for k in
+               ("train_loss", "val_loss")):
+        fail(f"gst_train: a non-finite loss: {epochs}")
+    if not (last["val_aoe"] <= 0.5 * untrained["aoe"]
+            and last["val_foe"] <= 0.5 * untrained["foe"]):
+        fail(f"gst_train: val aoe/foe {last['val_aoe']}/{last['val_foe']} "
+             f"not <= half the untrained {untrained['aoe']}/"
+             f"{untrained['foe']}")
+    if not pred_finite:
+        fail("gst_train: the trained predictor gave a non-finite value")
+    if any(launches.values()):
+        fail(f"gst_train launched a kernel: {launches}")
+    return launches
+
+
 def phase_edges(device) -> tuple:
     """The edges/s bench at its full shapes, through its own entry points:
     (launch counts, fused_sweep's ms)."""
@@ -1257,7 +1443,8 @@ def main() -> int:
                      "variants_eval": phase_variants_eval(device),
                      "variants_train": phase_variants_train(device),
                      "unicycle_train": phase_unicycle_train(gst, device),
-                     "policy_variants": phase_policy_variants(gst, device)}
+                     "policy_variants": phase_policy_variants(gst, device),
+                     "gst_train": phase_gst_train(cfg, device, smi)}
 
     def per_call(name):
         return {"device_launches_per_call": {

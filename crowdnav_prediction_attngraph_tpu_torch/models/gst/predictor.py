@@ -57,7 +57,7 @@ def gst_predict(model: STModel, input_traj, input_mask
                        torch.full_like(disp, INVALID))
     v_obs = disp.transpose(1, 2)                               # (B, L, A, 2)
 
-    mu, sx, sy, corr = model(v_obs, attn_mask_obs, loss_mask_rel)  # (B, K, A, .)
+    (mu, sx, sy, corr), _ = model(v_obs, attn_mask_obs, loss_mask_rel)
 
     # accumulate displacement Gaussians to the absolute frame (lines 98-111)
     mu_cum = torch.cumsum(mu, dim=1) + input_traj[:, None, :, -1]

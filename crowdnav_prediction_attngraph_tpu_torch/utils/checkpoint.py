@@ -1,12 +1,17 @@
 """Training checkpoints in the port's own format (JAX package
-``utils/checkpoint.py:14-46``, which uses orbax; the port's machines have
+``utils/checkpoint.py:14-73``, which uses orbax; the port's machines have
 none).
 
-``<dir>/<update:05d>.pt`` holds the policy's state_dict, the optimizer's
-and the lr schedule's, the update index and the generator states (the
-action/minibatch generator and every env's). Beside it, ``<update:05d>.npz``
-holds the params alone in the flax-tree layout of the committed weight
-files, which ``load_policy`` and the ``test`` CLI (``--params``) read.
+PPO: ``<dir>/<update:05d>.pt`` holds the policy's state_dict, the
+optimizer's and the lr schedule's, the update index and the generator
+states (the action/minibatch generator and every env's). Beside it,
+``<update:05d>.npz`` holds the params alone in the flax-tree layout of the
+committed weight files, which ``load_policy`` and the ``test`` CLI
+(``--params``) read.
+
+GST trainer: ``epoch_N/params.npz`` (the same flax-tree layout, which
+``load_gst`` and the ``--gst-params`` flags read) and
+``epoch_N/opt_state.pt`` (the Adam state and the schedule's step count).
 """
 
 from __future__ import annotations
@@ -17,7 +22,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .params import flatten_tree, state_dict_to_tree
+from .params import (flatten_tree, load_npz, state_dict_to_tree,
+                     tree_to_state_dict)
 
 
 def save_params(path: str, model: torch.nn.Module):
@@ -74,3 +80,32 @@ def restore_train_state(ckpt_dir: str, ts, step: Optional[int] = None
     for g, state in zip(ts.env_states.gens, payload["env_generators"]):
         g.set_state(state)
     return ts, payload["update"] + 1
+
+
+GST_PARAMS = "params.npz"
+GST_OPT_STATE = "opt_state.pt"
+
+
+def save_trainer_checkpoint(ck_dir: str, model: torch.nn.Module,
+                            optimizer: torch.optim.Optimizer, step: int):
+    """The GST trainer's checkpoint: ``params.npz`` and ``opt_state.pt``
+    (the optimizer's state and ``step``, the count of Adam steps taken,
+    which the lr schedule reads) under ``ck_dir``."""
+    os.makedirs(ck_dir, exist_ok=True)
+    save_params(os.path.join(ck_dir, GST_PARAMS), model)
+    path = os.path.join(ck_dir, GST_OPT_STATE)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"optimizer": optimizer.state_dict(), "step": step}, tmp)
+    os.replace(tmp, path)
+
+
+def restore_trainer_checkpoint(ck_dir: str, model: torch.nn.Module,
+                               optimizer: torch.optim.Optimizer) -> int:
+    """Load a :func:`save_trainer_checkpoint` into ``model`` and
+    ``optimizer`` (in place); returns the saved step count."""
+    sd = tree_to_state_dict(load_npz(os.path.join(ck_dir, GST_PARAMS)))
+    model.load_state_dict(sd, strict=True)
+    payload = torch.load(os.path.join(ck_dir, GST_OPT_STATE),
+                         map_location="cpu", weights_only=True)
+    optimizer.load_state_dict(payload["optimizer"])
+    return int(payload["step"])

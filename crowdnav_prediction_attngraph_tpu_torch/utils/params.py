@@ -1,9 +1,10 @@
 """Flax-style parameter trees <-> the port's ``state_dict``s.
 
 The inverse of the JAX package's ``utils/torch_import.py``: a nested numpy
-tree as flax stores it (dense ``kernel`` (in, out), LayerNorm ``scale``)
-becomes a flat ``state_dict`` with torch names and layouts (``weight``
-(out, in)), and back. Every other leaf (GRU/LSTM gate matrices, the packed
+tree as flax stores it (dense ``kernel`` (in, out), conv ``kernel``
+(kh, kw, in, out), LayerNorm ``scale``) becomes a flat ``state_dict`` with
+torch names and layouts (``weight`` (out, in) and (out, in, kh, kw)), and
+back. Every other leaf (GRU/LSTM gate matrices, the packed
 MHA ``in_proj`` matrices, ``logstd``, biases) keeps its name and layout.
 The committed weights are ``.npz`` files whose keys are the tree paths joined
 with ``'/'`` (written by ``tools/export_torch_weights.py``).
@@ -58,14 +59,17 @@ def params_tree(params) -> Dict:
 
 
 def tree_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax tree -> torch state_dict: ``kernel`` (in, out) becomes ``weight``
-    (out, in); a LayerNorm ``scale`` becomes ``weight``; all else is kept."""
+    """Flax tree -> torch state_dict: a dense ``kernel`` (in, out) becomes
+    ``weight`` (out, in), a conv ``kernel`` (kh, kw, in, out) becomes
+    ``weight`` (out, in, kh, kw); a LayerNorm ``scale`` becomes ``weight``;
+    all else is kept."""
     sd = {}
     for path, v in flatten_tree(tree).items():
         parts = path.split("/")
         leaf = parts[-1]
         if leaf == "kernel":
-            parts[-1], v = "weight", v.T
+            parts[-1] = "weight"
+            v = v.transpose(3, 2, 0, 1) if v.ndim == 4 else v.T
         elif leaf == "scale":
             parts[-1] = "weight"
         sd[".".join(parts)] = torch.from_numpy(np.ascontiguousarray(v))
@@ -74,7 +78,7 @@ def tree_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
 
 def state_dict_to_tree(sd: Mapping[str, torch.Tensor]) -> Dict:
     """Inverse of :func:`tree_to_state_dict`: a 2-D ``weight`` was a dense
-    kernel, a 1-D one a LayerNorm scale."""
+    kernel, a 4-D one a conv kernel, a 1-D one a LayerNorm scale."""
     flat = {}
     for name, t in sd.items():
         parts = name.split(".")
@@ -82,6 +86,8 @@ def state_dict_to_tree(sd: Mapping[str, torch.Tensor]) -> Dict:
         if parts[-1] == "weight":
             if v.ndim == 2:
                 parts[-1], v = "kernel", v.T
+            elif v.ndim == 4:
+                parts[-1], v = "kernel", v.transpose(2, 3, 1, 0)
             else:
                 parts[-1] = "scale"
         flat["/".join(parts)] = np.ascontiguousarray(v)

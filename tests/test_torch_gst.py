@@ -79,8 +79,8 @@ def test_st_model_matches_jax(tree, matmul_dtype, atol):
                                          matmul_dtype=matmul_dtype), tree,
                      "cpu")
     with torch.no_grad():
-        got = model(torch.from_numpy(v_obs), torch.from_numpy(attn),
-                    torch.from_numpy(lm))
+        got, _ = model(torch.from_numpy(v_obs), torch.from_numpy(attn),
+                       torch.from_numpy(lm))
     for name, g, e in zip(("mu", "sx", "sy", "corr"), got,
                           (mu_j, sx_j, sy_j, corr_j)):
         np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=atol,

@@ -23,6 +23,14 @@ import crowdnav_prediction_attngraph_tpu_torch.models.srnn
 import crowdnav_prediction_attngraph_tpu_torch.utils.checkpoint
 import crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention
 import crowdnav_prediction_attngraph_tpu_torch.ops.bench_edges
+import crowdnav_prediction_attngraph_tpu_torch.collect_data
+import crowdnav_prediction_attngraph_tpu_torch.env.collect
+import crowdnav_prediction_attngraph_tpu_torch.models.gst.dataset
+import crowdnav_prediction_attngraph_tpu_torch.models.gst.eval
+import crowdnav_prediction_attngraph_tpu_torch.models.gst.losses
+import crowdnav_prediction_attngraph_tpu_torch.models.gst.pecnet_data
+import crowdnav_prediction_attngraph_tpu_torch.models.gst.temporal_conv
+import crowdnav_prediction_attngraph_tpu_torch.models.gst.trainer
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m.startswith("jaxlib") or m.startswith("flax")

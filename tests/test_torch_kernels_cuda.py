@@ -50,6 +50,7 @@ also over several key tiles and with an all-masked row.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -426,3 +427,44 @@ def test_k3_rejects_what_it_does_not_take(cuda_device):
                                 k, v, mask, HEADS)
     with pytest.raises(RuntimeError):
         packed_masked_attention(q.requires_grad_(True), k, v, mask, HEADS)
+
+
+@pytest.mark.cuda
+def test_gst_collect_and_train_step_on_the_card(cuda_device):
+    """The GST training stack on the card (no kernel of its own): a collect
+    reset and steps give finite records, and one trainer step at full width
+    on a batch of collected windows gives a finite loss that agrees with
+    the CPU's at 1e-4 relative (f32, no TF32)."""
+    from crowdnav_prediction_attngraph_tpu_torch.collect_data import (
+        collect_dataset)
+    from crowdnav_prediction_attngraph_tpu_torch.config import (
+        PredConfig, varnum_config)
+    from crowdnav_prediction_attngraph_tpu_torch.models.gst import (
+        dataset, trainer)
+    from crowdnav_prediction_attngraph_tpu_torch.models.gst.predictor import (
+        load_gst)
+    from crowdnav_prediction_attngraph_tpu_torch.models.gst.st_model import (
+        init_gst)
+    from crowdnav_prediction_attngraph_tpu_torch.utils.params import (
+        state_dict_to_tree)
+
+    rows = collect_dataset(varnum_config(human_num=20), 4, 64, seed=0,
+                           device=cuda_device)
+    assert all(len(r) and np.isfinite(r).all() for r in rows)
+    windows = [w for r in rows for w in dataset.build_windows(r, 5, 5, 32)]
+    batch = trainer.stack_windows(windows[:64])
+    pc = PredConfig()
+    tree = state_dict_to_tree(init_gst(pc, torch.Generator().manual_seed(0),
+                                       "cpu").state_dict())
+    losses = []
+    for dev in (cuda_device, torch.device("cpu")):
+        model = load_gst(pc, tree, dev).train()
+        opt = trainer.make_optimizer(model, 1e-3)
+        loss, aux = trainer.train_step(model, opt, 1e-3,
+                                       trainer.to_device(batch, dev), 0.5,
+                                       None, False, None)
+        assert torch.isfinite(aux).all()
+        assert all(torch.isfinite(p).all() for p in model.parameters())
+        losses.append(loss.item())
+    assert math.isfinite(losses[0])
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
