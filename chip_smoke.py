@@ -116,7 +116,20 @@ Phases, each printing one JSON line with its seconds before the next starts:
    val aoe and foe are both <= half the untrained model's; the written
    ``epoch_4/params.npz`` reloaded with ``load_gst`` as the flagship env's
    predictor, one ``pretext_process`` batch and ``gst_predict`` on it must
-   be finite; K1, K2 and K3 must not launch.
+   be finite; K1, K2 and K3 must not launch;
+13. parallel: the data-parallel train step (``parallel/``) in a world of
+   one process over NCCL (``launch.initialize`` with a FileStore; the
+   card's machine has one card, and the multi-rank checks run on gloo in
+   tests/test_torch_parallel*.py and tests/test_torch_edge_partition.py).
+   One flagship iteration through ``launch.make_global_iteration`` from
+   the train phase's warm start, the counts zeroed just before and read
+   just after (K1 = 41, K2 = 10), held against the train phase's first
+   plain ``ppo.train_iteration`` from the same snapshot (value loss rtol
+   1e-4, every param atol 1e-5); the edge-partitioned ring at world size one
+   against the dense plain math at rows 256, A 16, D 256, 8 heads (atol
+   3e-5), both timed; ``bench_edges.weak_scaling`` and
+   ``weak_scaling_train`` at n = 1; fails on another backend than NCCL.
+   The group is destroyed at the end.
 
 The kernels line also gives each kernel's device launches per call and the
 registers and spills that ptxas reported for each of its CUDA functions.
@@ -142,6 +155,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from crowdnav_prediction_attngraph_tpu_torch import train as train_cli
 from crowdnav_prediction_attngraph_tpu_torch.collect_data import (
@@ -164,6 +178,10 @@ from crowdnav_prediction_attngraph_tpu_torch.models.policy_net import (
     init_hidden, obs_to_dict)
 from crowdnav_prediction_attngraph_tpu_torch.ops import (
     _build, bench_edges, masked_attention)
+from crowdnav_prediction_attngraph_tpu_torch.parallel import launch
+from crowdnav_prediction_attngraph_tpu_torch.parallel.edge_partition import (
+    edge_partitioned_attention)
+from crowdnav_prediction_attngraph_tpu_torch.parallel.mesh import full_params
 from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
     fused_graph_attention, fused_graph_attention_backward,
     packed_masked_attention, reference_fused_graph_attention,
@@ -245,6 +263,11 @@ ATTN_MODULES = ("embed_0", "embed_1", "q_linear", "k_linear", "v_linear",
 # held against the norm of the whole block's gradient instead.
 LEAF_REL = 1e-3
 ZERO_GRAD_LEAF = "spatial_attn.k_linear.bias"
+# parallel: the data-parallel iteration against the plain one (the JAX
+# tests' bounds, tests/test_parallel_train.py), and the ring's shape (the
+# JAX weak-scaling bench's n = 1: rows, A, D, heads) and tolerance
+PARALLEL_RTOL, PARALLEL_ATOL = 1e-4, 1e-5
+RING_SHAPE, RING_ATOL = (256, 16, 256, 8), 3e-5
 
 
 def emit(phase: str, t0: float, **kw):
@@ -773,7 +796,7 @@ def phase_train(cfg, gst, device) -> dict:
     zero_counts()
     torch.cuda.synchronize()
     iter_s, metrics = [], []
-    for _ in range(TRAIN_ITERS):
+    for i in range(TRAIN_ITERS):
         t_it = time.perf_counter()
         ts, m = ppo.train_iteration(cfg, ts, gst)
         torch.cuda.synchronize()
@@ -781,6 +804,11 @@ def phase_train(cfg, gst, device) -> dict:
         metrics.append({k: float(m[k]) for k in ("value_loss", "action_loss",
                                                  "dist_entropy",
                                                  "reward_mean")})
+        if i == 0:
+            # the parallel phase's reference: the first iteration from the
+            # warm start
+            first = ({k: v.clone() for k, v in ts.model.state_dict().items()},
+                     float(m["value_loss"]))
     launches = read_counts()
     n_updates = p.ppo_epoch * p.num_mini_batch
     expect = {"K1_fused_graph_attention":
@@ -837,7 +865,7 @@ def phase_train(cfg, gst, device) -> dict:
          rollout_seconds=rollout_s, rollout_env_steps_per_s=steps / rollout_s,
          update_seconds=update_s, grad_cosine_kernel_vs_plain=cosine,
          grad_rel_err_kernel_vs_plain=rel, grad_worst_attn_leaf=worst_leaf)
-    return launches
+    return launches, first
 
 
 def _suite_metrics(res, name) -> dict:
@@ -1357,6 +1385,86 @@ def phase_edges(device) -> tuple:
     return launches, sweep
 
 
+def phase_parallel(cfg, gst, device, plain_first) -> dict:
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(REPO, ".torch_build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(
+            dir=os.path.join(REPO, ".torch_build")) as tmp:
+        launch.initialize(num_processes=1, process_id=0, device=device,
+                          init_method=f"file://{tmp}/store")
+        backend = dist.get_backend()
+        if backend != "nccl":
+            fail(f"parallel: the process group is {backend}, not nccl")
+        mesh = launch.global_mesh(tp=1)
+        p = cfg.ppo
+
+        # the train phase's warm start through the data-parallel iteration
+        ts = launch.init_sharded_global(
+            cfg, mesh, gst, device,
+            pmod.load_policy(cfg, DEFAULT_PARAMS, device))
+        iteration = launch.make_global_iteration(cfg, mesh, gst)
+        zero_counts()
+        torch.cuda.synchronize()
+        t_it = time.perf_counter()
+        ts, m = iteration(ts)
+        torch.cuda.synchronize()
+        iter_s = time.perf_counter() - t_it
+        launches = read_counts()
+        n_updates = p.ppo_epoch * p.num_mini_batch
+        expect = {"K1_fused_graph_attention": p.num_steps + 1 + n_updates,
+                  "K2_fused_graph_attention_backward": n_updates,
+                  "K3_packed_masked_attention": 0}
+        if launches != expect:
+            fail(f"parallel launches {launches}, expected {expect}")
+        want, vl_plain = plain_first
+        vl = float(m["value_loss"])
+        if not (math.isfinite(vl)
+                and abs(vl - vl_plain) <= PARALLEL_RTOL * abs(vl_plain)):
+            fail(f"parallel value loss {vl} vs plain {vl_plain}")
+        got = full_params(ts.model, mesh)
+        param_err = max((got[k] - want[k]).abs().max().item() for k in want)
+        if not param_err <= PARALLEL_ATOL:
+            fail(f"parallel params differ from the plain iteration's by "
+                 f"{param_err}")
+
+        # the ring at world size one against the dense plain math
+        rows, a, d, heads = RING_SHAPE
+        q, k, v, mask = k3_inputs(rows, a, 0, device, d=d)
+        with torch.no_grad():
+            ring = edge_partitioned_attention(q, k, v, mask, heads, mesh)
+            dense = reference_masked_attention(q, k, v, mask, heads)
+            ring_err = (ring - dense).abs().max().item()
+            ring_ms = time_ms(lambda: edge_partitioned_attention(
+                q, k, v, mask, heads, mesh))
+            dense_ms = time_ms(lambda: reference_masked_attention(
+                q, k, v, mask, heads))
+        if not ring_err <= RING_ATOL:
+            fail(f"ring attention vs the dense math: {ring_err}")
+
+        t_ws = time.perf_counter()
+        weak = bench_edges.weak_scaling(device=device)
+        weak_train = bench_edges.weak_scaling_train(device=device)
+        weak_s = time.perf_counter() - t_ws
+        values = [r[key] for res, key in ((weak, "edges_per_s"),
+                                          (weak_train, "env_steps_per_s"))
+                  for r in res.values()]
+        if not (list(weak) == list(weak_train) == [1] and
+                all(math.isfinite(x) and x > 0 for x in values)):
+            fail(f"weak scaling: {weak}, {weak_train}")
+        launch.finalize()
+    emit("parallel", t0, backend=backend, world_size=1, mesh=mesh.shape,
+         envs=p.num_processes, steps=p.num_steps, iteration_seconds=iter_s,
+         launches=launches, value_loss=vl, value_loss_plain=vl_plain,
+         param_max_abs_err_vs_plain=param_err,
+         done_count=int(m["done_count"]),
+         ring={"rows": rows, "A": a, "D": d, "heads": heads,
+               "max_abs_err_vs_dense": ring_err, "ms": ring_ms,
+               "dense_ms": dense_ms},
+         weak_scaling=weak, weak_scaling_train=weak_train,
+         weak_scaling_seconds=weak_s)
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1435,7 +1543,7 @@ def main() -> int:
     cfg = config_from_snapshot(os.path.join(MODEL_DIR, "config.json"))
     gst = load_gst(cfg.pred, DEFAULT_GST_PARAMS, device)
     eval_launches = phase_evaluate(cfg, gst, device)
-    train_launches = phase_train(cfg, gst, device)
+    train_launches, train_first = phase_train(cfg, gst, device)
     edges_launches, edges_sweep = phase_edges(device)
     path_launches = {"evaluate": eval_launches, "train": train_launches,
                      "edges": edges_launches,
@@ -1444,7 +1552,9 @@ def main() -> int:
                      "variants_train": phase_variants_train(device),
                      "unicycle_train": phase_unicycle_train(gst, device),
                      "policy_variants": phase_policy_variants(gst, device),
-                     "gst_train": phase_gst_train(cfg, device, smi)}
+                     "gst_train": phase_gst_train(cfg, device, smi),
+                     "parallel": phase_parallel(cfg, gst, device,
+                                                train_first)}
 
     def per_call(name):
         return {"device_launches_per_call": {

@@ -81,25 +81,32 @@ def make_optimizer(cfg: Config, params) -> Tuple[torch.optim.Adam,
     return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
 
 
-def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        sq_norm: Optional[torch.Tensor] = None):
     """optax.clip_by_global_norm in place: every gradient times
-    min(1, max_norm / ||all gradients||)."""
-    norm = torch.sqrt(sum((g * g).sum() for g in grads))
+    min(1, max_norm / ||all gradients||). ``sq_norm`` is the squared norm
+    when ``grads`` are not all of it (tensor-parallel pieces)."""
+    if sq_norm is None:
+        sq_norm = sum((g * g).sum() for g in grads)
+    norm = torch.sqrt(sq_norm)
     factor = torch.clamp(max_norm / norm, max=1.0)
     for g in grads:
         g.mul_(factor)
 
 
 def init_train_state(cfg: Config, gst_model: Optional[STModel], device,
-                     model: Optional[policy_mod.PolicyHead] = None
-                     ) -> TrainState:
+                     model: Optional[policy_mod.PolicyHead] = None,
+                     env_ids: Optional[range] = None) -> TrainState:
     """Reset ``num_processes`` envs, each from its own generator seeded by
     ``ppo.seed`` and its index in the train phase's stream, and build a
     fresh optimizer (``ppo.py:75-98``). ``model`` defaults to
-    :func:`policy_mod.init_params` drawn from ``ppo.seed``."""
+    :func:`policy_mod.init_params` drawn from ``ppo.seed``. ``env_ids``
+    keeps only those envs (a data-parallel rank's slice)."""
     p = cfg.ppo
-    N = p.num_processes
-    gens = [case_generator(p.seed, i, "train") for i in range(N)]
+    if env_ids is None:
+        env_ids = range(p.num_processes)
+    N = len(env_ids)
+    gens = [case_generator(p.seed, i, "train") for i in env_ids]
     env_states, obs = vector.vec_reset_with_pretext(cfg, gens, gst_model,
                                                     device)
     if model is None:
@@ -134,21 +141,26 @@ def spin_coefficient(cfg: Config, total_steps: int, phase: str, device):
 
 
 def rollout(cfg: Config, ts: TrainState, gst_model: Optional[STModel],
-            phase: str = "train") -> Tuple[TrainState, RolloutBatch]:
+            phase: str = "train", env_offset: Optional[int] = None
+            ) -> Tuple[TrainState, RolloutBatch]:
     """T steps of sampled actions and env steps, then the bootstrap value
     (``ppo.py:101-163``; reference train.py:152-207). The unicycle's spin
     penalty is annealed by :func:`spin_coefficient`, computed once from the
-    rollout's first step."""
+    rollout's first step. ``env_offset``: ``ts`` holds the envs from this
+    index of the ``num_processes`` on, and each step's action noise is
+    their slice of the draw for all of them."""
     T = cfg.ppo.num_steps
     spin_coef = spin_coefficient(cfg, ts.total_steps, phase, ts.masks.device)
     env_states, obs, hxs, masks = ts.env_states, ts.obs, ts.hxs, ts.masks
     ep_ret, ep_env = ts.ep_return, ts.ep_return_env
     nan = torch.full_like(ep_ret, float("nan"))
+    noise_rows = (None if env_offset is None
+                  else (env_offset, cfg.ppo.num_processes))
     steps = []
     for _ in range(T):
         value, action, log_prob, hxs_new = policy_mod.act(
             ts.model, obs, hxs, masks, deterministic=False,
-            generator=ts.generator)
+            generator=ts.generator, noise_rows=noise_rows)
         env_states, obs_next, rew, done, info, penalty = vector.vec_step(
             cfg, env_states, action, phase, gst_model, spin_coef)
         ep_ret = ep_ret + rew
@@ -230,11 +242,18 @@ def ppo_update(cfg: Config, model: policy_mod.PolicyHead,
                schedule: torch.optim.lr_scheduler.LambdaLR,
                batch: RolloutBatch,
                generator: Optional[torch.Generator] = None,
-               perms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               perms: Optional[torch.Tensor] = None,
+               mesh=None) -> Dict[str, torch.Tensor]:
     """``ppo_epoch`` x ``num_mini_batch`` clipped-PPO Adam steps
     (``ppo.py:166-242``). Each epoch visits the envs in the order of one row
     of ``perms`` (ppo_epoch, N), drawn from ``generator`` when not given.
-    Returns the mean value loss, action loss and entropy over the steps."""
+    Returns the mean value loss, action loss and entropy over the steps.
+
+    With a ``parallel.mesh.Mesh``, ``batch`` is the whole batch on every
+    rank: each dp index takes its part of every minibatch, weighs its loss
+    by its share, and the gradients (and metrics) are summed over dp, so
+    the step is the one of the whole minibatch; the clip reads the norm of
+    the whole gradient, each tp piece counted once."""
     p = cfg.ppo
     N = batch.rewards.shape[1]
     n_per_batch = N // p.num_mini_batch
@@ -250,15 +269,42 @@ def ppo_update(cfg: Config, model: policy_mod.PolicyHead,
     for k in range(n_updates):
         epoch, mb = divmod(k, p.num_mini_batch)
         idx = perms[epoch, mb * n_per_batch:(mb + 1) * n_per_batch]
+        share = 1.0
+        if mesh is not None:
+            part = idx.tensor_split(mesh.dp)[mesh.dp_rank]
+            if not len(part):
+                raise ValueError(f"a minibatch of {len(idx)} envs does not "
+                                 f"cover dp = {mesh.dp}")
+            share, idx = len(part) / len(idx), part
         total, aux = ppo_loss(cfg, model, batch, returns, adv_n, idx)
         optimizer.zero_grad()
-        total.backward()
-        clip_by_global_norm([q.grad for q in params], p.max_grad_norm)
+        aux, sq_norm = torch.stack(aux).detach(), None
+        if mesh is None:
+            total.backward()
+        else:
+            (total * share).backward()
+            aux = aux * share
+            mesh.sum_dp_([q.grad for q in params] + [aux])
+            sq_norm = mesh.grad_sq_norm(params)
+        clip_by_global_norm([q.grad for q in params], p.max_grad_norm,
+                            sq_norm)
         optimizer.step()
         schedule.step()
-        acc += torch.stack(aux).detach()
+        acc += aux
     acc /= n_updates
     return {"value_loss": acc[0], "action_loss": acc[1], "dist_entropy": acc[2]}
+
+
+def batch_metrics(batch: RolloutBatch) -> Dict[str, torch.Tensor]:
+    """The rollout's metrics (``ppo.py:250-259``): the finished episodes'
+    returns, the mean reward, and their count and sums (one scalar each,
+    which a data-parallel run logs from)."""
+    return {"done_returns": batch.done_returns,
+            "done_returns_env": batch.done_returns_env,
+            "reward_mean": batch.rewards.mean(),
+            "done_count": (~torch.isnan(batch.done_returns)).sum(),
+            "done_sum": torch.nansum(batch.done_returns),
+            "done_sum_env": torch.nansum(batch.done_returns_env)}
 
 
 def train_iteration(cfg: Config, ts: TrainState, gst_model: Optional[STModel]
@@ -268,7 +314,5 @@ def train_iteration(cfg: Config, ts: TrainState, gst_model: Optional[STModel]
     ts, batch = rollout(cfg, ts, gst_model)
     metrics = ppo_update(cfg, ts.model, ts.optimizer, ts.schedule, batch,
                          ts.generator)
-    metrics["done_returns"] = batch.done_returns
-    metrics["done_returns_env"] = batch.done_returns_env
-    metrics["reward_mean"] = batch.rewards.mean()
+    metrics.update(batch_metrics(batch))
     return ts, metrics

@@ -36,9 +36,20 @@ def mode(mean):
     return mean
 
 
-def sample(mean, logstd, generator: Optional[torch.Generator] = None):
-    noise = torch.randn(mean.shape, generator=generator, device=mean.device,
-                        dtype=mean.dtype)
+def sample(mean, logstd, generator: Optional[torch.Generator] = None,
+           rows: Optional[Tuple[int, int]] = None):
+    """mean + std x noise. ``rows`` = (offset, total): draw the noise of
+    ``total`` rows and keep ``mean``'s rows from ``offset`` on, so that a
+    process holding a slice of the envs draws what one process stepping
+    them all would give that slice."""
+    if rows is None:
+        noise = torch.randn(mean.shape, generator=generator,
+                            device=mean.device, dtype=mean.dtype)
+    else:
+        offset, total = rows
+        noise = torch.randn((total, *mean.shape[1:]), generator=generator,
+                            device=mean.device, dtype=mean.dtype)
+        noise = noise[offset:offset + mean.shape[0]]
     return mean + torch.exp(logstd) * noise
 
 

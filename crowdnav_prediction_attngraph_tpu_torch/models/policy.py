@@ -7,7 +7,7 @@ with the JAX package's initializers.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -107,15 +107,17 @@ def _add_time(obs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 @torch.no_grad()
 def act(model: PolicyHead, obs: Mapping[str, torch.Tensor], rnn_h, masks,
         deterministic: bool = True,
-        generator: Optional[torch.Generator] = None):
+        generator: Optional[torch.Generator] = None,
+        noise_rows: Optional[Tuple[int, int]] = None):
     """Rollout-time forward (``policy.py:65-78``). obs is [N, ...], masks [N].
-    Returns (value [N, 1], action [N, 2], log_prob [N, 1], new hidden)."""
+    Returns (value [N, 1], action [N, 2], log_prob [N, 1], new hidden).
+    ``noise_rows`` goes to :func:`distributions.sample`."""
     value, mean, logstd, h_new = model(_add_time(obs), rnn_h, masks[None, :])
     value, mean, logstd = value[0], mean[0], logstd[0]
     if deterministic:
         action = distributions.mode(mean)
     else:
-        action = distributions.sample(mean, logstd, generator)
+        action = distributions.sample(mean, logstd, generator, noise_rows)
     return value, action, distributions.log_prob(mean, logstd, action), h_new
 
 

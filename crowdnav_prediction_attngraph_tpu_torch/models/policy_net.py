@@ -14,10 +14,14 @@ The human-human attention has two branches, as in the JAX package:
     fused_graph_attention`` runs QKV projection, masked attention and
     out-projection in one launch of K1, with K2 as its backward;
   * the einsum branch (``policy_net.py:140-170``), plain PyTorch.
-``use_ring_attention`` runs these same branches: the port has no process
-group, and the JAX package without a mesh does the same
-(``policy_net.py:147-160``); the ring over ``torch.distributed``, the same
-math sharded over the agent axis, is not ported.
+``use_ring_attention`` shards the agent axis of the einsum branch over the
+tp ranks of the ambient mesh (``parallel/edge_partition.py``, the ring over
+``torch.distributed``) when there is one with tp > 1 and A divides by tp;
+otherwise it runs the dense math, as the JAX package does without a mesh
+(``policy_net.py:147-160``). The kernel branch keeps precedence over the
+ring, as in the JAX package. Under tensor parallelism the 512-wide leaves
+are tp pieces that every read gathers (``parallel/mesh.py``), so both
+branches see whole weights.
 
 The ablations of the paper's comparison (``policy_net.py:245-296``):
 ``sort_humans=False`` masks the attention with the env's visibility (a
@@ -38,6 +42,8 @@ from torch import nn
 
 from ..config import Config
 from ..ops.masked_attention import fused_graph_attention
+from ..parallel.edge_partition import edge_partitioned_attention
+from ..parallel.mesh import current_mesh
 
 
 def create_attn_mask(each_seq_len, max_human_num: int):
@@ -76,10 +82,12 @@ class SpatialEdgeSelfAttn(nn.Module):
     True = valid key."""
 
     def __init__(self, input_size: int, attn_size: int = 512,
-                 num_heads: int = 8, kernel_dtype: str = "bfloat16"):
+                 num_heads: int = 8, kernel_dtype: str = "bfloat16",
+                 use_ring: bool = False):
         super().__init__()
         D = attn_size
         self.attn_size, self.num_heads = D, num_heads
+        self.use_ring = use_ring
         self.kernel_dtype = (torch.float32 if kernel_dtype == "float32"
                              else torch.bfloat16)
         self.embed_0 = nn.Linear(input_size, 128)
@@ -107,7 +115,8 @@ class SpatialEdgeSelfAttn(nn.Module):
 
     def forward(self, inp, attn_mask, use_kernel: bool):
         """``use_kernel`` picks the kernel branch (K1 forward, K2 backward)
-        or the einsum branch; the parameters are the same."""
+        or the einsum branch (the ring, with ``use_ring`` under a mesh);
+        the parameters are the same."""
         rows, A, _ = inp.shape
         D, nh = self.attn_size, self.num_heads
         hd = D // nh
@@ -124,6 +133,10 @@ class SpatialEdgeSelfAttn(nn.Module):
         q = self.q_linear(x) @ w_in[:, :D] + b_in[:D]
         k = self.k_linear(x) @ w_in[:, D:2 * D] + b_in[D:2 * D]
         v = self.v_linear(x) @ w_in[:, 2 * D:] + b_in[2 * D:]
+        mesh = current_mesh() if self.use_ring else None
+        if mesh is not None and mesh.tp > 1 and A % mesh.tp == 0:
+            return self.mha_out_proj(edge_partitioned_attention(
+                q, k, v, attn_mask, nh, mesh))
         qh = q.reshape(rows, A, nh, hd)
         kh = k.reshape(rows, A, nh, hd)
         vh = v.reshape(rows, A, nh, hd)
@@ -195,7 +208,8 @@ class SelfAttnMergeSRNN(nn.Module):
         if net.use_self_attn:
             self.spatial_attn = SpatialEdgeSelfAttn(
                 cfg.spatial_edge_dim, net.attn_size, net.num_attn_heads,
-                kernel_dtype=net.pallas_dtype)
+                kernel_dtype=net.pallas_dtype,
+                use_ring=net.use_ring_attention)
             self.spatial_linear = nn.Linear(net.attn_size, 256)
         else:
             self.spatial_linear_0 = nn.Linear(cfg.spatial_edge_dim, 128)

@@ -11,10 +11,22 @@ loads with ``--params``). The flagship recipe on the card:
       --output-dir trained_models/my_model --num-processes 64 \\
       --use-linear-lr-decay
 
-Runs on ``cuda`` unless ``--device cpu`` is given. The JAX CLI's multi-host
-and tensor-parallel flags are not ported; ``--gst-params`` (a ``.npz``
-export, the committed in-repo predictor by default) takes the place of
-``--gst-model-dir``.
+Runs on ``cuda`` unless ``--device cpu`` is given. ``--gst-params`` (a
+``.npz`` export, the committed in-repo predictor by default) takes the place
+of ``--gst-model-dir``.
+
+Data- and tensor-parallel training, one process per GPU (``parallel/``):
+``--multihost`` with ``--coordinator-address host:port``, ``--num-hosts``
+(the process count) and ``--process-id``, or with none of the three under
+``torchrun``; ``--tp`` shards the 512-wide attention projections over that
+many processes of each dp group. ``--num-processes`` stays the global env
+count. Rank 0 alone writes ``config.json``, ``progress.csv`` (from the
+batch's finished-episode count and sums, as the JAX CLI's multi-host log)
+and the checkpoints, in the single-process layout that ``test`` and
+``--resume`` read; the in-loop evaluation is off, as in the JAX CLI.
+
+  torchrun --nproc-per-node 8 -m crowdnav_prediction_attngraph_tpu_torch.train \\
+      --multihost --num-processes 512 --use-linear-lr-decay
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ from .algo import ppo as ppo_mod
 from .config import build_config
 from .models.gst.predictor import load_gst
 from .models.policy import load_policy
+from .parallel import launch
 from .test import DEFAULT_GST_PARAMS
 from .utils import checkpoint as ckpt_util
 from .utils.device import resolve_device
@@ -89,6 +102,19 @@ def _parser():
     p.add_argument("--eval-size", type=int, default=500,
                    help="episodes per in-loop evaluation")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--multihost", action="store_true",
+                   help="data-parallel training over torch.distributed, one "
+                        "process per GPU: the same command on every "
+                        "process; the envs split over the dp ranks")
+    p.add_argument("--coordinator-address", default=None,
+                   help="host:port of rank 0 (default: torchrun's env)")
+    p.add_argument("--num-hosts", type=int, default=None,
+                   help="number of processes")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel degree of the wide attention "
+                        "projections (--multihost)")
     return p
 
 
@@ -103,11 +129,22 @@ def _warm_start_path(path: str, step) -> str:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    device = resolve_device(args.device)
+    mesh, is_main = None, True
+    if args.multihost:
+        launch.initialize(args.coordinator_address, args.num_hosts,
+                          args.process_id, args.device)
+        device = launch.local_device(args.device)
+        mesh = launch.global_mesh(tp=args.tp)
+        is_main = torch.distributed.get_rank() == 0
+    elif args.tp != 1:
+        raise SystemExit("--tp needs --multihost")
+    else:
+        device = resolve_device(args.device)
     cfg = build_config(args)
-    os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "config.json"), "w") as f:
-        json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
+    if is_main:
+        os.makedirs(args.output_dir, exist_ok=True)
+        with open(os.path.join(args.output_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2, default=str)
 
     gst = (load_gst(cfg.pred, args.gst_params, device)
            if cfg.sim.predict_method == "inferred" else None)
@@ -115,17 +152,38 @@ def main(argv=None):
     if args.init_params_from and not args.resume:
         path = _warm_start_path(args.init_params_from, args.init_params_step)
         model = load_policy(cfg, path, device)
-        print(f"warm-started params from {path}")
-    ts = ppo_mod.init_train_state(cfg, gst, device, model)
+        if is_main:
+            print(f"warm-started params from {path}")
     start_update = 0
-    if args.resume:
-        ts, start_update = ckpt_util.restore_train_state(args.resume, ts)
+    if mesh is None:
+        ts = ppo_mod.init_train_state(cfg, gst, device, model)
+        if args.resume:
+            ts, start_update = ckpt_util.restore_train_state(args.resume, ts)
+
+        def iteration(ts):
+            return ppo_mod.train_iteration(cfg, ts, gst)
+
+        def save(ts, step):
+            ckpt_util.save_train_state(ckpt_dir, ts, step)
+    else:
+        ts = launch.init_sharded_global(cfg, mesh, gst, device, model)
+        if args.resume:
+            ts, start_update = launch.restore_train_state(args.resume, ts,
+                                                          mesh)
+        iteration = launch.make_global_iteration(cfg, mesh, gst)
+
+        def save(ts, step):
+            launch.save_train_state(ckpt_dir, ts, step, mesh)
     num_updates = int(cfg.ppo.num_env_steps) // cfg.ppo.num_steps \
         // cfg.ppo.num_processes
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"[train] device {name}; updates {start_update} to "
-          f"{num_updates - 1}", flush=True)
+    if is_main:
+        layout = ("" if mesh is None else
+                  f"; {torch.distributed.get_world_size()} processes "
+                  f"({torch.distributed.get_backend()}), mesh {mesh.shape}")
+        print(f"[train] device {name}{layout}; updates {start_update} to "
+              f"{num_updates - 1}", flush=True)
     ckpt_dir = os.path.join(args.output_dir, "checkpoints")
     best_success = -1.0
     episode_rewards = collections.deque(maxlen=100)
@@ -137,6 +195,13 @@ def main(argv=None):
 
     def flush_pending():
         for m in pending:
+            if mesh is not None:
+                # one mean per iteration, as the JAX multi-host log keeps
+                c = float(m["done_count"])
+                if c > 0:
+                    episode_rewards.append(float(m["done_sum"]) / c)
+                    episode_rewards_env.append(float(m["done_sum_env"]) / c)
+                continue
             for key, window in (("done_returns", episode_rewards),
                                 ("done_returns_env", episode_rewards_env)):
                 rets = m[key].cpu().numpy()
@@ -144,10 +209,11 @@ def main(argv=None):
         pending.clear()
 
     for j in range(start_update, num_updates):
-        ts, metrics = ppo_mod.train_iteration(cfg, ts, gst)
+        ts, metrics = iteration(ts)
         pending.append(metrics)
 
-        if args.eval_interval and j % args.eval_interval == 0 and j > 0:
+        if args.eval_interval and j % args.eval_interval == 0 and j > 0 \
+                and mesh is None:
             flush_pending()
             r = evaluation.evaluate(cfg, ts.model, gst,
                                     test_size=args.eval_size, phase="val",
@@ -161,7 +227,7 @@ def main(argv=None):
                         f"{r['min_intrusion_dist']}\n")
             # every eval point is checkpointed, so the best one can be
             # recovered
-            ckpt_util.save_train_state(ckpt_dir, ts, j)
+            save(ts, j)
             if r["success_rate"] >= best_success:
                 best_success = r["success_rate"]
                 with open(os.path.join(args.output_dir, "best.json"),
@@ -171,11 +237,12 @@ def main(argv=None):
                               f, indent=2)
 
         if j % args.save_interval == 0 or j == num_updates - 1:
-            ckpt_util.save_train_state(ckpt_dir, ts, j)
+            save(ts, j)
 
         if j % args.log_interval == 0:
             flush_pending()
-        if j % args.log_interval == 0 and len(episode_rewards) > 1:
+        if j % args.log_interval == 0 and len(episode_rewards) > 1 \
+                and is_main:
             total_num_steps = (j + 1) * cfg.ppo.num_processes \
                 * cfg.ppo.num_steps
             fps = int(total_num_steps / (time.time() - start))
@@ -200,6 +267,8 @@ def main(argv=None):
                 if header:
                     f.write(",".join(row.keys()) + "\n")
                 f.write(",".join(str(v) for v in row.values()) + "\n")
+    if mesh is not None:
+        launch.finalize()
     return ts
 
 

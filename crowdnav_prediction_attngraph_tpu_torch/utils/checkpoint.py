@@ -26,29 +26,38 @@ from .params import (flatten_tree, load_npz, state_dict_to_tree,
                      tree_to_state_dict)
 
 
-def save_params(path: str, model: torch.nn.Module):
-    """The model's params as a flax-tree ``.npz`` (tree paths joined with
-    '/')."""
+def save_params(path: str, model):
+    """A model's params (or a state_dict) as a flax-tree ``.npz`` (tree
+    paths joined with '/')."""
+    state = (model.state_dict() if isinstance(model, torch.nn.Module)
+             else model)
     tmp = f"{path}.{os.getpid()}.tmp.npz"
-    np.savez(tmp, **flatten_tree(state_dict_to_tree(model.state_dict())))
+    np.savez(tmp, **flatten_tree(state_dict_to_tree(state)))
     os.replace(tmp, path)
 
 
-def save_train_state(ckpt_dir: str, ts, step: int):
+def write_train_state(ckpt_dir: str, payload: dict):
+    """Write a checkpoint ``payload`` (the fields of
+    :func:`save_train_state`'s) as ``<update>.pt`` and its params as
+    ``<update>.npz``."""
     os.makedirs(ckpt_dir, exist_ok=True)
+    step = payload["update"]
     path = os.path.join(ckpt_dir, f"{step:05d}.pt")
-    payload = {
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    save_params(os.path.join(ckpt_dir, f"{step:05d}.npz"), payload["params"])
+
+
+def save_train_state(ckpt_dir: str, ts, step: int):
+    write_train_state(ckpt_dir, {
         "params": ts.model.state_dict(),
         "optimizer": ts.optimizer.state_dict(),
         "schedule": ts.schedule.state_dict(),
         "update": step,
         "generator": ts.generator.get_state(),
         "env_generators": [g.get_state() for g in ts.env_states.gens],
-    }
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    save_params(os.path.join(ckpt_dir, f"{step:05d}.npz"), ts.model)
+    })
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -59,17 +68,22 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
+def load_train_state(ckpt_dir: str, step: Optional[int] = None) -> dict:
+    """The payload of checkpoint ``step`` (default: the latest)."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    return torch.load(os.path.join(ckpt_dir, f"{step:05d}.pt"),
+                      map_location="cpu", weights_only=True)
+
+
 def restore_train_state(ckpt_dir: str, ts, step: Optional[int] = None
                         ) -> Tuple[object, int]:
     """Load params, optimizer, schedule and generator states into ``ts`` (in
     place) from checkpoint ``step`` (default: the latest); returns (ts, the
     next update index)."""
-    if step is None:
-        step = latest_step(ckpt_dir)
-    if step is None:
-        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-    payload = torch.load(os.path.join(ckpt_dir, f"{step:05d}.pt"),
-                         map_location="cpu", weights_only=True)
+    payload = load_train_state(ckpt_dir, step)
     ts.model.load_state_dict(payload["params"], strict=True)
     ts.optimizer.load_state_dict(payload["optimizer"])
     ts.schedule.load_state_dict(payload["schedule"])

@@ -31,6 +31,14 @@ import crowdnav_prediction_attngraph_tpu_torch.models.gst.losses
 import crowdnav_prediction_attngraph_tpu_torch.models.gst.pecnet_data
 import crowdnav_prediction_attngraph_tpu_torch.models.gst.temporal_conv
 import crowdnav_prediction_attngraph_tpu_torch.models.gst.trainer
+import crowdnav_prediction_attngraph_tpu_torch.parallel.mesh
+import crowdnav_prediction_attngraph_tpu_torch.parallel.edge_partition
+import crowdnav_prediction_attngraph_tpu_torch.parallel.train_step
+import crowdnav_prediction_attngraph_tpu_torch.parallel.launch
+from crowdnav_prediction_attngraph_tpu_torch import train
+train._parser().parse_args(["--multihost", "--coordinator-address",
+                            "127.0.0.1:1", "--num-hosts", "2",
+                            "--process-id", "0", "--tp", "2"])
 print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m.startswith("jaxlib") or m.startswith("flax")
