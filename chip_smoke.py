@@ -77,7 +77,7 @@ Phases, each printing one JSON line with its seconds before the next starts:
    (untrained: rates printed, not gated) under BASELINE config 1
    (CrowdSimVarNum, 5 humans), config 2 (CrowdSimPred const_vel and truth,
    10 humans) and the truth env with a visible robot, 32 cases each (cut
-   at 40 steps), the counts zeroed before and read after each; fails
+   at 20 steps), the counts zeroed before and read after each; fails
    unless K1 launched in each (K2 and K3 never);
 9. variants_train: one PPO iteration of BASELINE config 5 as the train CLI
    builds it (CrowdSimPredRealGST, 10-50 humans: A = 50; 64 envs x 30
@@ -96,7 +96,7 @@ Phases, each printing one JSON line with its seconds before the next starts:
 11. policy_variants: ``sort_humans=False`` under config 2 (CrowdSimPred
    truth, 10 humans), ``use_hr_attn=False`` and ``use_self_attn=False``
    under the flagship env, DS-RNN under config 1, each from a seeded
-   ``init_params`` (rates printed, not gated): 32 cases cut at 40 steps,
+   ``init_params`` (rates printed, not gated): 32 cases cut at 20 steps,
    then one PPO iteration (64 envs x 30 steps), the counts read for each:
    K1 in the first two and never in the last two, K2 in the first two
    updates; the gradient check on ``sort_humans=False``'s;
@@ -129,7 +129,38 @@ Phases, each printing one JSON line with its seconds before the next starts:
    against the dense plain math at rows 256, A 16, D 256, 8 heads (atol
    3e-5), both timed; ``bench_edges.weak_scaling`` and
    ``weak_scaling_train`` at n = 1; fails on another backend than NCCL.
-   The group is destroyed at the end.
+   The group is destroyed at the end;
+14. off_path: the modules off the training path, each part timed by
+   ``utils/profiling.PhaseTimer`` with the counts zeroed before and read
+   after it. native: the port's C++ ORCA engine built with g++, and the
+   humans' ORCA velocities of the flagship state (64 envs x 20 humans
+   after 5 train steps) on the card in f32 (atol 2e-4 where LP2 is
+   feasible, 2e-2 on LP3 egos with one near-tied flip per env or 3% of its
+   LP3 egos allowed) and f64 (5e-3) against the engine, the engine against
+   the NumPy oracle on 256 egos (1e-9), and 60 engine crowd steps of 8
+   agents crossing a circle without interpenetration; lidar: ``scan`` at
+   64 envs x 72 rays x 20 humans on the card against the CPU (1e-5 where a
+   ray misses, and within the float32 conditioning bound of
+   tests/test_torch_lidar.py on hits); gym: CrowdSimPredRealGST-v0 with the
+   committed GST export stepped 20 times by the committed policy (rewards
+   finite, spatial edges (20, 12)), then CrowdSimVarNum-v0 with the
+   scripted ORCA robot for 20 steps, no kernel; record_replay:
+   ``record_sim_episode`` of case 0 with the network policy (20 steps),
+   its CSVs saved, ``load_actions`` and ``replay_actions`` on the card bit
+   for bit, and ``record_episode`` of the same case (cut at 11 steps by the
+   time limit) bit-equal to the recording; sim2real: ``Sim2RealEnv`` over
+   ``DummyDetectionSource`` (seed 0) for 10 steps of the committed policy,
+   the observation contract's shapes and dtypes; rms_profiling:
+   ``rms_update`` / ``normalize_obs`` of the rollout's robot_node rows on
+   the card against the CPU (1e-6 relative, plus the float32 rounding of
+   x - mean over the std of the constant columns), and one gym step under
+   ``profiling.trace``, whose trace must hold CUDA kernel events. K1 must
+   launch once per policy ``act``, K2 and K3 never. Nothing here draws:
+   ``record_episode`` runs, ``render_*`` and ``plot`` do not (the card's
+   machine has no matplotlib).
+
+Phases 8 and 11 cut their suites at 20 steps (40 before the off_path
+phase came), so the whole script stays under 300 s of phases.
 
 The kernels line also gives each kernel's device launches per call and the
 registers and spills that ptxas reported for each of its CUDA functions.
@@ -142,6 +173,7 @@ fails ends the run with a non-zero exit code and no result line.
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
 import json
 import math
@@ -157,6 +189,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from crowdnav_prediction_attngraph_tpu_torch import sim2real
 from crowdnav_prediction_attngraph_tpu_torch import train as train_cli
 from crowdnav_prediction_attngraph_tpu_torch.collect_data import (
     collect_dataset, write_records)
@@ -165,7 +198,10 @@ from crowdnav_prediction_attngraph_tpu_torch.algo import ppo
 from crowdnav_prediction_attngraph_tpu_torch.config import (
     PredConfig, build_config, config_from_snapshot, pred_config,
     varnum_config)
-from crowdnav_prediction_attngraph_tpu_torch.env import crowd_sim
+from crowdnav_prediction_attngraph_tpu_torch.env import (
+    crowd_sim, gym_adapter, lidar)
+from crowdnav_prediction_attngraph_tpu_torch.env.orca import (
+    _lp2, orca_lines, orca_velocity_batch)
 from crowdnav_prediction_attngraph_tpu_torch.env.pretext import pretext_process
 from crowdnav_prediction_attngraph_tpu_torch.models import policy as pmod
 from crowdnav_prediction_attngraph_tpu_torch.models.gst import (
@@ -188,7 +224,12 @@ from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
     reference_fused_graph_attention_backward, reference_masked_attention)
 from crowdnav_prediction_attngraph_tpu_torch.test import (
     DEFAULT_GST_PARAMS, DEFAULT_PARAMS)
-from crowdnav_prediction_attngraph_tpu_torch.utils import checkpoint
+from crowdnav_prediction_attngraph_tpu_torch.runtime import native
+from crowdnav_prediction_attngraph_tpu_torch.utils import (
+    checkpoint, profiling, render, running_mean_std as rms)
+from crowdnav_prediction_attngraph_tpu_torch.utils.orca_oracle import (
+    orca_velocity_np)
+from crowdnav_prediction_attngraph_tpu_torch.utils.recorder import Recorder
 from crowdnav_prediction_attngraph_tpu_torch.utils.params import (
     flatten_tree, state_dict_to_tree)
 
@@ -199,14 +240,18 @@ UNICYCLE_DIR = os.path.join(REPO, "trained_models",
                             "GST_predictor_unicycle_scratch_r5")
 N_CASES = 32
 MIN_SUCCESS = 0.70
-# the scripted and variant suites' depth: 40 steps (10 s of an episode's
-# 49), so that their seven suites take well under 1 min (with the full
+# the scripted suites' depth: 40 steps (10 s of an episode's
+# 49), so that the suites take well under 1 min (with the full
 # episodes they took 229 s on an H100 80GB HBM3 at 700 W, 0.06-0.23 s a
 # lock-step step, most of it ORCA); the 500-case scores of the test CLI
 # run the full episodes. A scripted robot needs ~18 s to its goal on
 # average, so few cases end in success within the cut: the scripted phase
 # requires one at least, over its three suites
 SUITE_STEPS = 40
+# the variant and ablation suites' depth (rates printed, not gated): 20
+# steps, half the scripted suites', which gives the off_path phase the
+# ~19 s it takes and keeps the script under 300 s of phases
+VARIANT_STEPS = 20
 TRAIN_ITERS = 2
 K1_ROWS = (N_CASES, 64, 960)
 A, D, HEADS = 20, 512, 8
@@ -268,6 +313,21 @@ ZERO_GRAD_LEAF = "spatial_attn.k_linear.bias"
 # JAX weak-scaling bench's n = 1: rows, A, D, heads) and tolerance
 PARALLEL_RTOL, PARALLEL_ATOL = 1e-4, 1e-5
 RING_SHAPE, RING_ATOL = (256, 16, 256, 8), 3e-5
+# off_path: the ORCA cross-check's bounds (tests/test_torch_orca.py: f32 on
+# egos whose LP2 is feasible, f32 on LP3 egos with one near-tied flip per
+# env or 3% of its LP3 egos allowed, f64 on every ego; the engine against
+# the NumPy oracle as tests/test_native_orca.py), the egos the oracle
+# solves, the lidar's flat bound and the RMS bound (relative to the
+# magnitude, card vs CPU reductions)
+ORCA_F32_LP2, ORCA_F32_LP3, ORCA_F64, ORCA_ORACLE = 2e-4, 2e-2, 5e-3, 1e-9
+ORACLE_EGOS = 256
+LIDAR_ATOL, RMS_TOL = 1e-5, 1e-6
+# off_path's depth: the gym envs' steps, record_sim_episode's (the replay
+# takes as many again) and record_episode's, and sim2real's; a one-env
+# test-phase step costs ~0.1 s on an H100, so the records are cut
+# to 20 and 10 steps to keep the phase near 15 s
+GYM_STEPS, RECORD_STEPS, SIM2REAL_STEPS = 20, 20, 10
+RECORD_EPISODE_STEPS = 10
 
 
 def emit(phase: str, t0: float, **kw):
@@ -885,8 +945,9 @@ def _suite_metrics(res, name) -> dict:
     return metrics
 
 
-def run_suites(suites, device, policy_of, gst=None) -> tuple:
-    """Each (name, cfg, robot policy) as one 32-case batch of SUITE_STEPS
+def run_suites(suites, device, policy_of, gst=None,
+               max_steps: int = SUITE_STEPS) -> tuple:
+    """Each (name, cfg, robot policy) as one 32-case batch of ``max_steps``
     steps, the launch counts zeroed just before and read just after each:
     ({name: result}, launches summed over the suites). ``gst`` is the
     predictor of the ``inferred`` env (unused by the others)."""
@@ -899,7 +960,7 @@ def run_suites(suites, device, policy_of, gst=None) -> tuple:
         res = evaluation.evaluate(cfg, policy, gst, test_size=N_CASES,
                                   batch_size=N_CASES, device=device,
                                   log=lambda m: None, robot_policy=robot,
-                                  max_steps=SUITE_STEPS)
+                                  max_steps=max_steps)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         launches = read_counts()
@@ -944,8 +1005,8 @@ def phase_variants_eval(device) -> dict:
     """The network policy, from a seeded init_params (untrained: rates are
     printed, not gated), under BASELINE config 1 (CrowdSimVarNum, 5
     humans), config 2 (CrowdSimPred const_vel and truth, 10 humans) and the
-    truth env with a robot the humans see, 32 cases each; K1 must launch in
-    each (rows 32 x A = 5 / 10)."""
+    truth env with a robot the humans see, 32 cases each cut at
+    VARIANT_STEPS; K1 must launch in each (rows 32 x A = 5 / 10)."""
     t0 = time.perf_counter()
     truth = pred_config("truth", human_num=10)
     runs, launches = run_suites(
@@ -957,9 +1018,10 @@ def phase_variants_eval(device) -> dict:
              robot=dataclasses.replace(truth.robot, visible=True)),
           "network")),
         device, lambda cfg: pmod.init_params(
-            cfg, torch.Generator().manual_seed(cfg.ppo.seed), device))
-    emit("variants_eval", t0, cases=N_CASES, max_steps=SUITE_STEPS, runs=runs,
-         launches=launches)
+            cfg, torch.Generator().manual_seed(cfg.ppo.seed), device),
+        max_steps=VARIANT_STEPS)
+    emit("variants_eval", t0, cases=N_CASES, max_steps=VARIANT_STEPS,
+         runs=runs, launches=launches)
     for name, run in runs.items():
         got = run["launches"]
         if not (got["K1_fused_graph_attention"] > 0
@@ -1123,7 +1185,7 @@ def phase_unicycle_train(gst, device) -> dict:
 def phase_policy_variants(gst, device) -> dict:
     """The ablations and DS-RNN as the train CLI builds their envs, each
     from a seeded init_params (untrained: rates printed, not gated), full
-    widths: 32 cases cut at SUITE_STEPS, then one PPO iteration (64 envs x
+    widths: 32 cases cut at VARIANT_STEPS, then one PPO iteration (64 envs x
     30 steps, 5 epochs x 2 minibatches), the counts zeroed before and read
     after each. ``sort_humans=False`` under BASELINE config 2
     (CrowdSimPred truth, 10 humans, left unsorted: K1 and K2 under the
@@ -1158,7 +1220,7 @@ def phase_policy_variants(gst, device) -> dict:
                                  device)
         g = gst if cfg.sim.predict_method == "inferred" else None
         suite, eval_launches = run_suites(((name, cfg, "network"),), device,
-                                          lambda c: model, g)
+                                          lambda c: model, g, VARIANT_STEPS)
         ts = ppo.init_train_state(cfg, g, device, model)
         zero_counts()
         torch.cuda.synchronize()
@@ -1207,7 +1269,7 @@ def phase_policy_variants(gst, device) -> dict:
         for launches in (eval_launches, train_launches):
             for k, v in launches.items():
                 total[k] = total.get(k, 0) + v
-    emit("policy_variants", t0, cases=N_CASES, max_steps=SUITE_STEPS,
+    emit("policy_variants", t0, cases=N_CASES, max_steps=VARIANT_STEPS,
          runs=runs, launches=total)
     return total
 
@@ -1465,6 +1527,360 @@ def phase_parallel(cfg, gst, device, plain_first) -> dict:
     return launches
 
 
+def _policy_batch(obs: dict, device) -> dict:
+    """A gym observation (numpy, no batch axis) as the policy's batch of
+    one on ``device``."""
+    return {k: torch.as_tensor(v, device=device)[None]
+            if k != "detected_human_num" else
+            torch.as_tensor(v, device=device).long() for k, v in obs.items()}
+
+
+def _off_native(cfg, device, rollout) -> dict:
+    """The native engine built with g++, and the humans' ORCA velocities of
+    the flagship state (64 envs x 20 humans after 5 steps) three ways: the
+    batched ORCA on the card in f32 and in f64, the engine on the host, the
+    NumPy oracle on the first ORACLE_EGOS egos; then the 8-agent antipodal
+    circle through 60 engine crowd steps."""
+    t = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t
+    st = rollout["state"]
+    nbr_pos, nbr_vel, nbr_radius, nbr_mask, _ = \
+        crowd_sim.build_human_neighbor_inputs(cfg, st)
+    B, A, N = nbr_mask.shape
+    E = B * A
+    inflate = crowd_sim._inflate(cfg)
+    h = st.humans
+    args = [h.pos.reshape(E, 2), h.vel.reshape(E, 2),
+            (h.radius + inflate).reshape(E), h.v_pref.reshape(E),
+            crowd_sim._pref_velocity(h.goal, h.pos).reshape(E, 2),
+            nbr_pos.reshape(E, N, 2), nbr_vel.reshape(E, N, 2),
+            (nbr_radius + inflate).reshape(E, N), nbr_mask.reshape(E, N)]
+    nd = st.orca_neighbor_dist[:, None].expand(B, A).reshape(E)
+    ts, th = cfg.env.time_step, cfg.orca.time_horizon
+    f32 = orca_velocity_batch(*args, ts, th, nd)
+    a64 = [x.double() if x.is_floating_point() else x for x in args]
+    f64 = orca_velocity_batch(*a64, ts, th, nd.double())
+    d, p, valid = orca_lines(args[0], args[1], args[2], args[5], args[6],
+                             args[7], args[8], ts, th, nd)
+    _, lp2_fail = _lp2(d, p, valid, args[3], args[4], False)
+    host = [x.cpu().numpy() for x in a64]
+    nd_h = nd.double().cpu().numpy()
+    t = time.perf_counter()
+    eng = np.stack([native.orca_velocity_native(
+        *[x[e] for x in host], ts, th, nd_h[e]) for e in range(E)])
+    engine_s = time.perf_counter() - t
+    t = time.perf_counter()
+    oracle = np.stack([orca_velocity_np(
+        *[x[e] for x in host[:5]], *[x[e][host[8][e]] for x in host[5:8]],
+        ts, th, nd_h[e]) for e in range(ORACLE_EGOS)])
+    oracle_s = time.perf_counter() - t
+    f32, f64 = f32.cpu().numpy(), f64.cpu().numpy()
+    lp2_ok = lp2_fail.cpu().numpy() == N
+    err32 = np.abs(f32 - eng).max(-1)
+    err64 = np.abs(f64 - eng).max(-1)
+    err_oracle = np.abs(eng[:ORACLE_EGOS] - oracle).max()
+    off = (~lp2_ok & (err32 > ORCA_F32_LP3)).reshape(B, A).sum(-1)
+    lp3 = (~lp2_ok).reshape(B, A).sum(-1)
+    flips_ok = bool(np.all(off <= np.maximum(1, 0.03 * lp3)))
+
+    # the crowd stepper: 8 agents swapping places across a circle
+    ang = np.linspace(0, 2 * np.pi, 8, endpoint=False)
+    pos = np.stack([5 * np.cos(ang), 5 * np.sin(ang)], axis=1)
+    goal, vel = -pos.copy(), np.zeros((8, 2))
+    d0, min_gap = np.linalg.norm(pos - goal, axis=1), np.inf
+    for _ in range(60):
+        pos, vel = native.orca_crowd_step_native(
+            pos, vel, np.full(8, 0.3), np.ones(8), goal, 0.15, ts, th, 10.0)
+        gap = np.linalg.norm(pos[:, None] - pos[None], axis=-1)
+        min_gap = min(min_gap, float(gap[np.triu_indices(8, 1)].min()))
+    progressed = bool(np.all(np.linalg.norm(pos - goal, axis=1) < d0))
+    info = {"library": os.path.basename(native.library_path()),
+            "build_seconds": build_s, "egos": E, "neighbours": N,
+            "lp3_egos": int((~lp2_ok).sum()),
+            "f32_max_abs_err_lp2": float(err32[lp2_ok].max()),
+            "f32_max_abs_err_lp3": float(err32[~lp2_ok].max())
+            if (~lp2_ok).any() else 0.0,
+            "f32_lp3_flips": int(off.sum()),
+            "f64_max_abs_err": float(err64.max()),
+            "oracle_egos": ORACLE_EGOS,
+            "engine_vs_oracle_max_abs_err": float(err_oracle),
+            "engine_seconds": engine_s, "oracle_seconds": oracle_s,
+            "crowd_step_min_gap": min_gap, "crowd_step_progressed": progressed}
+    if not (info["f32_max_abs_err_lp2"] <= ORCA_F32_LP2 and flips_ok
+            and info["f64_max_abs_err"] <= ORCA_F64
+            and err_oracle <= ORCA_ORACLE):
+        fail(f"off_path native: ORCA cross-check out of bounds: {info}")
+    if not (min_gap > 0.55 and progressed):
+        fail(f"off_path native: crowd step: {info}")
+    return info
+
+
+def _lidar_bound(cfg, args) -> tuple:
+    """The scan in float64 on the CPU, and its per-ray bound: LIDAR_ATOL,
+    plus on a hit four float32 ulps of |rel|^2 over the sqrt argument (the
+    range cancels |rel|^2 - t^2; tests/test_torch_lidar.py)."""
+    rp, th, hp, hr, hm = (a.double().cpu() for a in args)
+    R = lidar.num_rays(cfg)
+    ang = th[..., None] + torch.arange(R, dtype=torch.float64) * (
+        2 * math.pi / R)
+    dvec = torch.stack([torch.cos(ang), torch.sin(ang)], -1)
+    rel = hp - rp[..., None, :]
+    tt = torch.einsum("...rk,...ak->...ra", dvec, rel)
+    c2 = (rel * rel).sum(-1)[..., None, :].expand_as(tt)
+    arg = (hr * hr)[..., None, :] - (c2 - tt * tt)
+    hit_t = tt - torch.sqrt(arg.clamp_min(0.0))
+    valid = (arg >= 0) & (hit_t > 0) & (hm[..., None, :] > 0)
+    ranges = torch.where(valid, hit_t, torch.full_like(hit_t, cfg.lidar.range))
+    near = ranges.argmin(-1, keepdim=True)
+    out = ranges.gather(-1, near)[..., 0].clamp_max(cfg.lidar.range)
+    hit = out < cfg.lidar.range
+    cond = (c2.gather(-1, near)[..., 0]
+            / arg.gather(-1, near)[..., 0].clamp_min(1e-12).sqrt())
+    eps = torch.finfo(torch.float32).eps
+    return out, LIDAR_ATOL + torch.where(hit, 4 * eps * cond,
+                                         torch.zeros_like(cond))
+
+
+def _off_lidar(cfg, device, rollout) -> dict:
+    """``lidar.scan`` at 64 envs x 72 rays x 20 humans on the card against
+    the same call on the CPU (and both against the float64 scan)."""
+    st = rollout["state"]
+    active = torch.arange(cfg.sim.max_human_num, device=device)[None] < \
+        st.human_num[:, None]
+    args = (st.robot.pos, st.robot.theta, st.humans.pos, st.humans.radius,
+            active.float())
+    card = lidar.scan(cfg, *args)
+    cpu = lidar.scan(cfg, *(a.cpu() for a in args))
+    card = card.cpu()
+    truth, bound = _lidar_bound(cfg, args)
+    err = (card - cpu).abs()
+    miss = truth == cfg.lidar.range
+    info = {"shape": list(card.shape), "rays_hit": int((~miss).sum()),
+            "max_abs_err_vs_cpu": err.max().item(),
+            "max_abs_err_vs_cpu_misses": err[miss].max().item()
+            if miss.any() else 0.0,
+            "rays_over_flat_atol": int((err > LIDAR_ATOL).sum()),
+            "max_abs_err_vs_f64": (card.double() - truth).abs().max().item()}
+    if not (card.shape == (64, lidar.num_rays(cfg)) and bool(
+            (err.double() <= bound).all()) and bool(
+            ((card.double() - truth).abs() <= bound).all())
+            and info["max_abs_err_vs_cpu_misses"] <= LIDAR_ATOL):
+        fail(f"off_path lidar: {info}")
+    return info
+
+
+def _off_gym(policy, pcfg, device) -> tuple:
+    """The flagship env through the gym adapter (the committed GST export),
+    stepped by the committed policy's deterministic action; then the
+    var-num env with the scripted ORCA robot, which launches no kernel."""
+    env = gym_adapter.make("CrowdSimPredRealGST-v0",
+                           gst_params=DEFAULT_GST_PARAMS, device=device)
+    obs, _ = env.reset(seed=0)
+    hxs = init_hidden(pcfg, 1, device)
+    masks = torch.ones(1, device=device)
+    acts, rewards, shapes = 0, [], set()
+    for _ in range(GYM_STEPS):
+        _, action, _, hxs = pmod.act(policy, _policy_batch(obs, device), hxs,
+                                     masks)
+        acts += 1
+        obs, r, term, trunc, _ = env.step(action[0].cpu().numpy())
+        rewards.append(r)
+        shapes.add(obs["spatial_edges"].shape)
+        if term or trunc:
+            break
+    zero_before = read_counts()
+    orca_env = gym_adapter.make("CrowdSimVarNum-v0", robot_policy="orca",
+                                device=device)
+    orca_env.reset(seed=0)
+    orca_steps = 0
+    for _ in range(GYM_STEPS):
+        _, r2, term, trunc, _ = orca_env.step(np.zeros(2))
+        orca_steps += 1
+        if not math.isfinite(r2) or term or trunc:
+            break
+    scripted_launches = {k: read_counts()[k] - v
+                         for k, v in zero_before.items()}
+    info = {"gst_steps": acts, "gst_rewards": rewards,
+            "spatial_edges_shapes": sorted(shapes),
+            "orca_steps": orca_steps, "orca_launches": scripted_launches}
+    if not (all(math.isfinite(r) for r in rewards) and shapes == {(20, 12)}
+            and math.isfinite(r2) and not any(scripted_launches.values())):
+        fail(f"off_path gym: {info}")
+    return info, acts, env
+
+
+def _off_record_replay(cfg, policy, gst, device) -> tuple:
+    """record_sim_episode with the network policy (case 0, at most
+    RECORD_STEPS steps), the CSVs saved and the actions replayed on the
+    card: the positions must equal the recording bit for bit. Then
+    record_episode of the same case (no drawing), cut by the time limit at
+    RECORD_EPISODE_STEPS + 1 steps: its positions must equal the
+    recording's too."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _, steps = sim2real.record_sim_episode(
+            cfg, case_idx=0, robot_policy="network", policy=policy,
+            gst_model=gst, out_dir=tmp, max_steps=RECORD_STEPS,
+            device=device)
+        actions = Recorder.load_actions(os.path.join(tmp, "0_actions.csv"))
+        with open(os.path.join(tmp, "0_positions.csv")) as f:
+            recorded = np.asarray([[float(x) for x in row]
+                                   for row in csv.reader(f)], np.float32)
+    replayed = sim2real.replay_actions(cfg, actions, case_idx=0,
+                                       device=device).astype(np.float32)
+    # the same case through record_episode, its episode cut at
+    # RECORD_EPISODE_STEPS by the time limit (the dynamics do not read it)
+    short = cfg.replace(env=dataclasses.replace(
+        cfg.env, time_limit=1.0 + RECORD_EPISODE_STEPS * cfg.env.time_step))
+    traj = render.record_episode(short, policy, gst, case_idx=0,
+                                 base_seed=cfg.ppo.seed,
+                                 robot_policy="network", device=device)
+    traj_pos = np.asarray(traj["robot_pos"][1:steps + 1], np.float32)
+    n = min(len(traj_pos), steps)
+    info = {"recorded_steps": steps, "replayed_steps": len(replayed),
+            "replay_bit_equal": bool(np.array_equal(replayed, recorded)),
+            "replay_max_abs_err": float(np.abs(replayed - recorded).max())
+            if replayed.shape == recorded.shape else None,
+            "record_episode_steps": len(traj["robot_pos"]),
+            "record_episode_bit_equal": bool(np.array_equal(
+                traj_pos[:n], recorded[:n]))}
+    if not (steps > 0 and info["replay_bit_equal"]
+            and info["record_episode_bit_equal"]):
+        fail(f"off_path record_replay: {info}")
+    return info, steps + len(traj["robot_pos"])
+
+
+def _off_sim2real(cfg, policy, device) -> tuple:
+    """Sim2RealEnv over DummyDetectionSource (seed 0) fed to the committed
+    policy on the card for SIM2REAL_STEPS steps; the observation contract's
+    shapes and dtypes."""
+    env = sim2real.Sim2RealEnv(cfg, sim2real.DummyDetectionSource(cfg, 0))
+    A, D = cfg.sim.max_human_num, cfg.spatial_edge_dim
+    want = {"robot_node": ((1, 7), np.float32),
+            "temporal_edges": ((1, 2), np.float32),
+            "spatial_edges": ((A, D), np.float32),
+            "visible_masks": ((A,), np.bool_),
+            "detected_human_num": ((1,), np.float32)}
+    ob = env.reset()
+    hxs = init_hidden(cfg, 1, device)
+    masks = torch.ones(1, device=device)
+    contract, cmds = True, []
+    for _ in range(SIM2REAL_STEPS):
+        contract &= all(ob[k].shape == s and ob[k].dtype == dt
+                        for k, (s, dt) in want.items())
+        _, action, _, hxs = pmod.act(policy, sim2real.policy_obs(ob, device),
+                                     hxs, masks)
+        ob, _, _, step_info = env.step(action[0].cpu().numpy())
+        cmds.append([step_info["v"], step_info["w"]])
+    info = {"steps": SIM2REAL_STEPS, "contract_ok": contract,
+            "last_cmd": cmds[-1]}
+    if not (contract and np.all(np.isfinite(cmds))):
+        fail(f"off_path sim2real: {info}")
+    return info, SIM2REAL_STEPS
+
+
+def _off_rms_profiling(device, rollout, env) -> dict:
+    """rms_update / normalize_obs over the rollout's robot_node batch on
+    the card against the CPU; one gym step under profiling.trace. The
+    state is held to RMS_TOL relative; a normalized entry to RMS_TOL
+    relative plus four float32 ulps of |x| + |mean| over the std: the
+    radius and v_pref columns are constant, so x - mean is rounding noise
+    that the 1e-4 std of eps = 1e-8 amplifies 1e4 times."""
+    batch = rollout["robot_node"]
+    card = rms.rms_update(rms.rms_init((7,), device), batch)
+    x = batch.cpu()
+    cpu = rms.rms_update(rms.rms_init((7,)), x)
+    norm_card = rms.normalize_obs(card, batch).cpu()
+    norm_cpu = rms.normalize_obs(cpu, x)
+    state_err = max(((a.cpu() - b).abs() / b.abs().clamp_min(1.0)).max().item()
+                    for a, b in zip(card, cpu))
+    eps = torch.finfo(torch.float32).eps
+    norm_bound = (RMS_TOL * norm_cpu.abs().clamp_min(1.0) + 4 * eps
+                  * (x.abs() + cpu.mean.abs()) / torch.sqrt(cpu.var + 1e-8))
+    norm_err = (norm_card - norm_cpu).abs()
+    env.reset(seed=1)
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            env.step(np.array([0.3, 0.1]))
+        trace_bytes = os.path.getsize(os.path.join(tmp, "trace.json"))
+    cuda_events = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                      for e in prof.events())
+    info = {"rows": int(batch.shape[0]), "state_max_rel_err": state_err,
+            "normalized_max_abs_err": norm_err.max().item(),
+            "normalized_within_bound": bool((norm_err <= norm_bound).all()),
+            "trace_cuda_events": cuda_events, "trace_bytes": trace_bytes}
+    if not (state_err <= RMS_TOL and info["normalized_within_bound"]
+            and cuda_events > 0):
+        fail(f"off_path rms/profiling: {info}")
+    return info
+
+
+def phase_off_path(cfg, gst, device) -> dict:
+    """The modules off the training path: the native ORCA engine, lidar,
+    the gym adapter, record and replay, sim2real, running mean/std and
+    profiling, each part timed with ``profiling.PhaseTimer`` and its launch
+    counts zeroed just before and read just after. K1 must launch once per
+    policy ``act`` (gym, record_replay, sim2real), K2 and K3 never. Nothing
+    here draws: ``record_episode`` runs, ``render_*`` and ``plot`` do not
+    (the card's machine has no matplotlib)."""
+    t0 = time.perf_counter()
+    timer = profiling.PhaseTimer()
+    policy = pmod.load_policy(cfg, DEFAULT_PARAMS, device)
+    parts, acts, total = {}, {}, {}
+    # the flagship state: 64 envs x 20 ORCA humans, 5 train-phase steps
+    with timer.phase("rollout", sync=device):
+        gens = [evaluation.case_generator(cfg.ppo.seed, i, "train")
+                for i in range(cfg.ppo.num_processes)]
+        st, ob = crowd_sim.reset(cfg, gens, device)
+        nodes = [ob.robot_node]
+        zero = torch.zeros(len(gens), 2, device=device)
+        for _ in range(5):
+            st, ob, _, _, _ = crowd_sim.step(cfg, st, zero, "train")
+            nodes.append(ob.robot_node)
+        rollout = {"state": st, "robot_node": torch.cat(nodes)}
+    env_holder = {}
+
+    def run(name, fn):
+        zero_counts()
+        with timer.phase(name, sync=device):
+            out = fn()
+        launches = read_counts()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        info, n_act = out if isinstance(out, tuple) else (out, 0)
+        parts[name] = {**info, "launches": launches}
+        print(json.dumps({"off_path_part": name,
+                          "seconds": timer.totals[name], **parts[name]}),
+              file=sys.stderr, flush=True)
+        acts[name] = n_act
+        return launches
+
+    run("native", lambda: _off_native(cfg, device, rollout))
+    run("lidar", lambda: _off_lidar(cfg, device, rollout))
+
+    def gym():
+        info, n, env = _off_gym(policy, cfg, device)
+        env_holder["env"] = env
+        return info, n
+    run("gym", gym)
+    run("record_replay", lambda: _off_record_replay(cfg, policy, gst, device))
+    run("sim2real", lambda: _off_sim2real(cfg, policy, device))
+    run("rms_profiling",
+        lambda: _off_rms_profiling(device, rollout, env_holder["env"]))
+    n_acts = sum(acts.values())
+    k1_by_part = {k: v["launches"]["K1_fused_graph_attention"]
+                  for k, v in parts.items()}
+    emit("off_path", t0, parts=parts, part_seconds=dict(timer.totals),
+         policy_acts=acts, launches=total)
+    if k1_by_part != acts:
+        fail(f"off_path: K1 launches by part {k1_by_part} != policy acts "
+             f"{acts} ({n_acts} in all)")
+    if total["K2_fused_graph_attention_backward"] or \
+            total["K3_packed_masked_attention"]:
+        fail(f"off_path: K2 or K3 launched: {total}")
+    return total
+
+
 def main() -> int:
     t0 = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1554,7 +1970,8 @@ def main() -> int:
                      "policy_variants": phase_policy_variants(gst, device),
                      "gst_train": phase_gst_train(cfg, device, smi),
                      "parallel": phase_parallel(cfg, gst, device,
-                                                train_first)}
+                                                train_first),
+                     "off_path": phase_off_path(cfg, gst, device)}
 
     def per_call(name):
         return {"device_launches_per_call": {

@@ -17,6 +17,13 @@ ones.
 Usage:
   python -m crowdnav_prediction_attngraph_tpu_torch.models.gst.eval \\
       --data-dir data/orca20 --ckpt results/gst_run/epoch_100
+  python -m crowdnav_prediction_attngraph_tpu_torch.models.gst.eval \\
+      --dataset sj --torch-ckpt <reference run>/checkpoint/epoch_100.pt
+
+``--torch-ckpt`` imports one of the reference's checkpoints
+(``utils/torch_import.py``) and prints the val metrics stored in it
+(``val_loss_epoch`` / ``val_aoe_epoch`` / ``val_foe_epoch``) beside the
+recomputed ones.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
@@ -34,6 +41,7 @@ import torch
 from ...config import PredConfig
 from ...utils.checkpoint import GST_PARAMS
 from ...utils.device import resolve_device
+from ...utils.torch_import import load_torch_checkpoint
 from . import dataset as ds
 from .predictor import load_gst
 from .st_model import STModel
@@ -121,8 +129,7 @@ def main(argv=None):
     p.add_argument("--ckpt", default=None,
                    help="epoch_N directory written by the port's trainer")
     p.add_argument("--torch-ckpt", default=None,
-                   help="reference epoch_*.pt to import instead (not "
-                        "ported yet)")
+                   help="reference epoch_*.pt to import instead")
     p.add_argument("--max-peds", type=int, default=None,
                    help="cap on pedestrians per window; default: no cap for "
                         "--dataset benchmarks, 32 for --data-dir dumps "
@@ -135,13 +142,8 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.torch_ckpt:
-        raise NotImplementedError(
-            "--torch-ckpt (the reference's .pt GST checkpoints, "
-            "utils/torch_import.py) is not ported yet: ROADMAP queue 1, "
-            "item 8")
-    if not args.ckpt:
-        raise SystemExit("provide --ckpt")
+    if not (args.ckpt or args.torch_ckpt):
+        raise SystemExit("provide --ckpt or --torch-ckpt")
     device = resolve_device(args.device)
 
     cfg = dataclasses.replace(PredConfig(),
@@ -170,12 +172,19 @@ def main(argv=None):
     print(f"{len(windows)} {args.split} windows "
           f"({windows[0]['v'].shape[1]} ped slots)")
 
-    model = load_gst(cfg, os.path.join(args.ckpt, GST_PARAMS), device)
     stored = None
-    meta_path = os.path.join(args.ckpt, "val_metrics.json")
-    if os.path.exists(meta_path):
-        with open(meta_path) as f:
-            stored = json.load(f)
+    if args.torch_ckpt:
+        model = load_gst(cfg, args.torch_ckpt, device)
+        raw = load_torch_checkpoint(args.torch_ckpt)
+        stored = {k: float(raw[k]) for k in
+                  ("val_loss_epoch", "val_aoe_epoch", "val_foe_epoch")
+                  if k in raw}
+    else:
+        model = load_gst(cfg, os.path.join(args.ckpt, GST_PARAMS), device)
+        meta_path = os.path.join(args.ckpt, "val_metrics.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                stored = json.load(f)
 
     mode = args.mode or ("test" if args.split == "test" else "val")
     m = evaluate_dataset(model, windows, batch_size=args.batch_size,

@@ -10,6 +10,7 @@ is vmapped; this one takes a leading env axis.
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import torch
@@ -17,23 +18,39 @@ import torch
 from ...config import PredConfig
 from ...utils.device import resolve_device
 from ...utils.params import params_tree, tree_to_state_dict
+from ...utils.torch_import import load_gst_checkpoint
 from .st_model import STModel
 
 INVALID = -999.0
 
 
+REFERENCE_CKPT = os.path.join("checkpoint", "epoch_100.pt")
+
+
 def load_gst(cfg: PredConfig, params, device="cuda") -> STModel:
-    """An STModel on ``device`` holding ``params`` (a flax-style tree, with or
-    without the top ``'params'`` level, or the path of a ``.npz`` export)."""
+    """An STModel on ``device`` holding ``params``: a flax-style tree (with or
+    without the top ``'params'`` level), the path of a ``.npz`` export, or
+    one of the reference's torch checkpoints, as a ``.pt`` file or as the
+    reference's results directory holding ``checkpoint/epoch_100.pt`` (JAX
+    ``train.py::load_gst_params``)."""
+    if isinstance(params, str):
+        if os.path.isdir(params):
+            params = os.path.join(params, REFERENCE_CKPT)
+        if params.endswith(".pt"):
+            params = load_gst_checkpoint(params, cfg.spatial_num_layers)
     model = STModel(cfg)
     model.load_state_dict(tree_to_state_dict(params_tree(params)), strict=True)
     return model.to(resolve_device(device)).eval()
 
 
 @torch.no_grad()
-def gst_predict(model: STModel, input_traj, input_mask
+def gst_predict(model: STModel, input_traj, input_mask, noise=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """input_traj (B, A, L, 2) absolute positions; input_mask (B, A, L) bool.
+    With the edge selector (``spatial_num_heads_edges > 0``) the model reads
+    the pairwise relative positions and the Gumbel uniforms ``noise``
+    (``st_model.draw_noise``'s layout; default: drawn from a generator
+    seeded 0).
 
     Returns (out_traj (B, A, K, 5) [mu_x, mu_y, sx, sy, corr] in the absolute
     frame, out_mask (B, A, 1) bool)."""
@@ -56,8 +73,14 @@ def gst_predict(model: STModel, input_traj, input_mask
     disp = torch.where(lm_rel_obs[..., None] > 0, disp,
                        torch.full_like(disp, INVALID))
     v_obs = disp.transpose(1, 2)                               # (B, L, A, 2)
+    a_obs = None
+    if model.cfg.spatial_num_heads_edges:
+        # relative positions (i - j) per timestep (seq_to_graph, lines 9-21)
+        pos_t = input_traj.transpose(1, 2)                     # (B, L, A, 2)
+        a_obs = pos_t[:, :, :, None] - pos_t[:, :, None]       # (B, L, A, A, 2)
 
-    (mu, sx, sy, corr), _ = model(v_obs, attn_mask_obs, loss_mask_rel)
+    (mu, sx, sy, corr), _ = model(v_obs, attn_mask_obs, loss_mask_rel,
+                                  a_obs, noise=noise)
 
     # accumulate displacement Gaussians to the absolute frame (lines 98-111)
     mu_cum = torch.cumsum(mu, dim=1) + input_traj[:, None, :, -1]

@@ -31,8 +31,13 @@ scored in its name.
   python -m crowdnav_prediction_attngraph_tpu_torch.test \\
       --env-name CrowdSimVarNum --robot-policy orca --test-case-size 500
 
-Runs on ``cuda`` unless ``--device cpu`` is given. ``--visualize``,
-``--test-case`` and ``--render-out`` are not ported yet.
+``--visualize`` runs no suite: it steps one case (``--test-case``, default
+0) and draws each step as it happens, live with a display and always to a
+GIF (``--render-out``, default ``<out-dir>/test/case_<N>.gif``), as the JAX
+CLI does (``test.py:89-97, 143-152``). Drawing needs matplotlib, imported
+only then.
+
+Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from .algo import evaluation
 from .config import build_config, config_from_snapshot
 from .models.gst.predictor import load_gst
 from .models.policy import load_policy
+from .utils import render
 from .utils.checkpoint import latest_step
 from .utils.device import resolve_device
 
@@ -117,7 +123,9 @@ def _parser():
                    help="policy weights (.npz); default: the model dir's "
                         "checkpoint (see above)")
     p.add_argument("--gst-params", default=DEFAULT_GST_PARAMS,
-                   help="GST predictor weights (.npz export)")
+                   help="GST predictor weights: a .npz export, a reference "
+                        ".pt checkpoint, or a reference results dir holding "
+                        "checkpoint/epoch_100.pt")
     p.add_argument("--step", type=int, default=None,
                    help="with --params: the step the weights come from "
                         f"(names the log; default {DEFAULT_STEP})")
@@ -127,6 +135,15 @@ def _parser():
     p.add_argument("--test-case-size", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None,
                    help="cases per lock-step batch (default: all at once)")
+    p.add_argument("--visualize", action="store_true",
+                   help="render one episode live instead of running the "
+                        "suite (reference test.py --visualize)")
+    p.add_argument("--test-case", type=int, default=0,
+                   help="case index to visualize (reference test.py "
+                        "--test_case)")
+    p.add_argument("--render-out", default=None,
+                   help="GIF path for --visualize (default "
+                        "<out-dir>/test/case_<N>.gif)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--out-dir", default=None,
                    help="log root (default: torch_eval, or --model-dir for a "
@@ -175,6 +192,15 @@ def main(argv=None):
         else "torch_eval")
     out_dir = os.path.join(out_root, "test")
     os.makedirs(out_dir, exist_ok=True)
+    if args.visualize:
+        out_path = args.render_out or os.path.join(
+            out_dir, f"case_{args.test_case}.gif")
+        render.render_episode_live(
+            cfg, policy, gst, case_idx=args.test_case,
+            base_seed=cfg.ppo.seed, robot_policy=args.robot_policy,
+            out_path=out_path, device=device)
+        print(f"wrote {out_path}")
+        return out_path
     log_path = os.path.join(out_dir, f"test_{step:05d}.log")
     logger = logging.getLogger("crowdnav_prediction_attngraph_tpu_torch.test")
     logger.setLevel(logging.INFO)

@@ -12,8 +12,9 @@ loads with ``--params``). The flagship recipe on the card:
       --use-linear-lr-decay
 
 Runs on ``cuda`` unless ``--device cpu`` is given. ``--gst-params`` (a
-``.npz`` export, the committed in-repo predictor by default) takes the place
-of ``--gst-model-dir``.
+``.npz`` export, the committed in-repo predictor by default, or one of the
+reference's ``.pt`` checkpoints, as a file or as a results dir holding
+``checkpoint/epoch_100.pt``) takes the place of ``--gst-model-dir``.
 
 Data- and tensor-parallel training, one process per GPU (``parallel/``):
 ``--multihost`` with ``--coordinator-address host:port``, ``--num-hosts``
@@ -72,7 +73,9 @@ def _parser():
     p.add_argument("--log-interval", type=int, default=20)
     p.add_argument("--save-interval", type=int, default=200)
     p.add_argument("--gst-params", default=DEFAULT_GST_PARAMS,
-                   help="GST predictor weights (.npz export)")
+                   help="GST predictor weights: a .npz export, a reference "
+                        ".pt checkpoint, or a reference results dir holding "
+                        "checkpoint/epoch_100.pt")
     p.add_argument("--gst-matmul-dtype", default="bf16",
                    choices=["f32", "bf16"],
                    help="GST predictor inference matmul dtype")

@@ -50,7 +50,7 @@ from crowdnav_prediction_attngraph_tpu_torch.models.gst import trainer as ttrain
 from crowdnav_prediction_attngraph_tpu_torch.models.gst.predictor import (
     gst_predict, load_gst)
 from crowdnav_prediction_attngraph_tpu_torch.utils.params import (
-    flatten_tree, state_dict_to_tree, tree_to_state_dict)
+    flatten_tree, load_npz, state_dict_to_tree, tree_to_state_dict)
 from test_torch_gst_model import configs
 
 P = 8                      # pedestrian slots
@@ -408,8 +408,9 @@ def test_evaluate_dataset_matches_jax(windows):
 def test_trainer_and_eval_clis(data_dir, tmp_path, monkeypatch):
     """The trainer CLI at full width on a few windows, the written
     params.npz through load_gst, the eval CLI on the checkpoint (its val
-    metrics against the ones stored beside it), and the same file as the
-    train and test CLIs' ``--gst-params``."""
+    metrics against the ones stored beside it, and the same metrics from
+    the weights written as a reference ``.pt`` through ``--torch-ckpt``),
+    and the same file as the train and test CLIs' ``--gst-params``."""
     out = str(tmp_path / "run")
     hist = ttrainer.main(["--data-dir", str(data_dir), "--out", out,
                           "--epochs", "1", "--batch-size", "4",
@@ -431,9 +432,15 @@ def test_trainer_and_eval_clis(data_dir, tmp_path, monkeypatch):
         stored = json.load(f)
     np.testing.assert_allclose(m["aoe"], stored["val_aoe_epoch"], rtol=1e-5)
     np.testing.assert_allclose(m["foe"], stored["val_foe_epoch"], rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        teval.main(["--data-dir", str(data_dir), "--torch-ckpt", "x.pt",
-                    "--device", "cpu"])
+    # the same weights as a reference .pt give the same metrics
+    from test_torch_utils_misc import save_reference_checkpoint
+    pt = str(tmp_path / "reference" / "epoch_1.pt")
+    save_reference_checkpoint(pt, load_npz(params))
+    m_pt = teval.main(["--data-dir", str(data_dir), "--split", "test",
+                       "--mode", "val", "--max-windows", "6",
+                       "--batch-size", "4", "--torch-ckpt", pt,
+                       "--device", "cpu"])
+    assert m_pt == m
 
     loaded = []
 

@@ -1,4 +1,6 @@
-"""The PyTorch port imports neither jax nor anything of the JAX package.
+"""The PyTorch port imports neither jax nor anything of the JAX package, and
+none of matplotlib, pandas, rospy and gym (the card's machine has none of
+them; the modules that draw or talk to ROS import them when called).
 
 Checked in a fresh interpreter: this test process already imported jax (see
 conftest.py).
@@ -35,6 +37,17 @@ import crowdnav_prediction_attngraph_tpu_torch.parallel.mesh
 import crowdnav_prediction_attngraph_tpu_torch.parallel.edge_partition
 import crowdnav_prediction_attngraph_tpu_torch.parallel.train_step
 import crowdnav_prediction_attngraph_tpu_torch.parallel.launch
+import crowdnav_prediction_attngraph_tpu_torch.env.lidar
+import crowdnav_prediction_attngraph_tpu_torch.env.gym_adapter
+import crowdnav_prediction_attngraph_tpu_torch.sim2real
+import crowdnav_prediction_attngraph_tpu_torch.plot
+import crowdnav_prediction_attngraph_tpu_torch.runtime.native
+import crowdnav_prediction_attngraph_tpu_torch.utils.recorder
+import crowdnav_prediction_attngraph_tpu_torch.utils.render
+import crowdnav_prediction_attngraph_tpu_torch.utils.running_mean_std
+import crowdnav_prediction_attngraph_tpu_torch.utils.profiling
+import crowdnav_prediction_attngraph_tpu_torch.utils.orca_oracle
+import crowdnav_prediction_attngraph_tpu_torch.utils.torch_import
 from crowdnav_prediction_attngraph_tpu_torch import train
 train._parser().parse_args(["--multihost", "--coordinator-address",
                             "127.0.0.1:1", "--num-hosts", "2",
@@ -43,6 +56,8 @@ print(json.dumps(sorted(m for m in sys.modules
                         if m == "jax" or m.startswith("jax.")
                         or m.startswith("jaxlib") or m.startswith("flax")
                         or m.startswith("orbax")
+                        or m.split(".")[0] in ("matplotlib", "pandas",
+                                               "rospy", "gym")
                         or m == "crowdnav_prediction_attngraph_tpu"
                         or m.startswith("crowdnav_prediction_attngraph_tpu."))))
 """
