@@ -27,6 +27,7 @@ from ..env.types import (OUTCOME_COLLISION, OUTCOME_DANGER,
 from ..models import policy as policy_mod
 from ..models.policy_net import init_hidden, obs_to_dict
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 PHASE_OFFSET = {"val": 0, "test": 1000, "train": 2000}
 
@@ -121,36 +122,36 @@ def _evaluate_chunk(cfg: Config, policy, gst_model, base_seed: int, idx,
     for _ in range(max_steps):
         if not bool(alive.any()):
             break
-        if robot_policy == "network":
-            _, action, _, hxs_new = policy_mod.act(policy, obs_d, hxs, masks,
-                                                   deterministic=True)
-        else:
-            action, hxs_new = torch.zeros(B, 2, device=device), hxs
-        states_new, obs_new, rew, done, info = crowd_sim.step(
-            cfg, states, action, "test", robot_policy)
-        if gst:
-            states_new, obs_new, rew, _ = pretext_process(
-                cfg, gst_model, states_new, obs_new, rew)
-        n_steps += 1
+        with span("eval.step"):
+            if robot_policy == "network":
+                _, action, _, hxs_new = policy_mod.act(
+                    policy, obs_d, hxs, masks, deterministic=True)
+            else:
+                action, hxs_new = torch.zeros(B, 2, device=device), hxs
+            states_new, obs_new, rew, done, info = crowd_sim.step(
+                cfg, states, action, "test", robot_policy)
+            if gst:
+                states_new, obs_new, rew, _ = pretext_process(
+                    cfg, gst_model, states_new, obs_new, rew)
+            n_steps += 1
 
-        # freeze finished episodes
-        states = tree_where(alive, states_new, states)
-        obs_d = tree_where(alive, obs_to_dict(obs_new), obs_d)
-        hxs = tree_where(alive, hxs_new, hxs)
+            # freeze finished episodes
+            states = tree_where(alive, states_new, states)
+            obs_d = tree_where(alive, obs_to_dict(obs_new), obs_d)
+            hxs = tree_where(alive, hxs_new, hxs)
 
-        new_pos = obs_d["robot_node"][:, :2]
-        step_now = alive
-        steps += step_now.long()
-        ep_rew += torch.where(step_now, rew, zeros)
-        path_len += torch.where(step_now,
-                                torch.linalg.norm(new_pos - last_pos, dim=-1),
-                                zeros)
-        last_pos = torch.where(step_now[:, None], new_pos, last_pos)
-        is_danger = step_now & (info.outcome == OUTCOME_DANGER)
-        danger_steps += is_danger.long()
-        min_dist_sum += torch.where(is_danger, info.min_dist, zeros)
-        outcome = torch.where(step_now & done, info.outcome, outcome)
-        alive = alive & ~done
+            new_pos = obs_d["robot_node"][:, :2]
+            step_now = alive
+            steps += step_now.long()
+            ep_rew += torch.where(step_now, rew, zeros)
+            path_len += torch.where(
+                step_now, torch.linalg.norm(new_pos - last_pos, dim=-1), zeros)
+            last_pos = torch.where(step_now[:, None], new_pos, last_pos)
+            is_danger = step_now & (info.outcome == OUTCOME_DANGER)
+            danger_steps += is_danger.long()
+            min_dist_sum += torch.where(is_danger, info.min_dist, zeros)
+            outcome = torch.where(step_now & done, info.outcome, outcome)
+            alive = alive & ~done
     acc = tuple(t.cpu().numpy() for t in (steps, outcome, path_len,
                                           danger_steps, min_dist_sum, ep_rew,
                                           alive))

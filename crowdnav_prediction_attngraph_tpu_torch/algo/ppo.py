@@ -25,6 +25,7 @@ from ..env.types import EnvState, OUTCOME_TIMEOUT
 from ..models import policy as policy_mod
 from ..models.gst.st_model import STModel
 from ..models.policy_net import init_hidden, obs_to_dict
+from ..utils.profiling import span, spanned
 from .evaluation import case_generator
 from .gae import compute_returns
 
@@ -94,6 +95,7 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
         g.mul_(factor)
 
 
+@spanned("ppo.init_train_state")
 def init_train_state(cfg: Config, gst_model: Optional[STModel], device,
                      model: Optional[policy_mod.PolicyHead] = None,
                      env_ids: Optional[range] = None) -> TrainState:
@@ -140,6 +142,7 @@ def spin_coefficient(cfg: Config, total_steps: int, phase: str, device):
     return r.spin_penalty_factor * frac
 
 
+@spanned("ppo.rollout")
 def rollout(cfg: Config, ts: TrainState, gst_model: Optional[STModel],
             phase: str = "train", env_offset: Optional[int] = None
             ) -> Tuple[TrainState, RolloutBatch]:
@@ -195,6 +198,7 @@ def rollout(cfg: Config, ts: TrainState, gst_model: Optional[STModel],
     return ts, batch
 
 
+@spanned("ppo.gae")
 def advantages(cfg: Config, batch: RolloutBatch):
     """(returns (T, N), normalised advantages (T, N)) (``ppo.py:174-181``):
     advantages over the whole batch, normalised with std(ddof=1) as torch's
@@ -208,6 +212,7 @@ def advantages(cfg: Config, batch: RolloutBatch):
     return returns, (adv - adv.mean()) / (adv.std() + 1e-5)
 
 
+@spanned("ppo.loss")
 def ppo_loss(cfg: Config, model: policy_mod.PolicyHead, batch: RolloutBatch,
              returns, adv_n, idx):
     """The minibatch loss over envs ``idx`` (``ppo.py:187-215``): clipped
@@ -237,6 +242,7 @@ def ppo_loss(cfg: Config, model: policy_mod.PolicyHead, batch: RolloutBatch,
     return total, (value_loss, action_loss, entropy)
 
 
+@spanned("ppo.update")
 def ppo_update(cfg: Config, model: policy_mod.PolicyHead,
                optimizer: torch.optim.Adam,
                schedule: torch.optim.lr_scheduler.LambdaLR,
@@ -280,16 +286,19 @@ def ppo_update(cfg: Config, model: policy_mod.PolicyHead,
         optimizer.zero_grad()
         aux, sq_norm = torch.stack(aux).detach(), None
         if mesh is None:
-            total.backward()
+            with span("ppo.backward"):
+                total.backward()
         else:
-            (total * share).backward()
+            with span("ppo.backward"):
+                (total * share).backward()
             aux = aux * share
             mesh.sum_dp_([q.grad for q in params] + [aux])
             sq_norm = mesh.grad_sq_norm(params)
-        clip_by_global_norm([q.grad for q in params], p.max_grad_norm,
-                            sq_norm)
-        optimizer.step()
-        schedule.step()
+        with span("ppo.optimizer"):
+            clip_by_global_norm([q.grad for q in params], p.max_grad_norm,
+                                sq_norm)
+            optimizer.step()
+            schedule.step()
         acc += aux
     acc /= n_updates
     return {"value_loss": acc[0], "action_loss": acc[1], "dist_entropy": acc[2]}

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..utils.profiling import count, span, spanned
 from . import kinematics, spawn
 from .orca import orca_velocity_batch
 from .social_force import social_force_velocity
@@ -100,6 +101,20 @@ def _offset_angle(p1_pos, p1_heading, p2_pos):
     return torch.arccos((fwd * v12).sum(dim=-1).clamp(-1.0, 1.0))
 
 
+def _read_any(mask, site: str) -> bool:
+    """``bool(mask.any())``: a blocking device read, counted as ``site``."""
+    count(site)
+    return bool(mask.any())
+
+
+def _constant(values, device, site: str) -> torch.Tensor:
+    """``torch.tensor(values, device=device)``: a copy from pageable host
+    memory, which waits for the device as a read does; counted as
+    ``site``."""
+    count(site)
+    return torch.tensor(values, device=device)
+
+
 def robot_human_visibility(cfg: Config, state: EnvState) -> torch.Tensor:
     """(B, A): which active humans the robot sees (crowd_sim.py:558-572)."""
     heading = _heading(cfg, state.robot.vel, state.robot.theta)
@@ -140,7 +155,8 @@ def update_last_human_states(cfg: Config, state: EnvState, visibility,
                        state.humans.radius[..., None]], dim=-1)
     last = state.last_human_states
     if reset:
-        fallback = torch.tensor(BELIEF_DUMMY, device=last.device).expand_as(last)
+        fallback = _constant(BELIEF_DUMMY, last.device,
+                             "sync.observe_beliefs").expand_as(last)
     else:
         fallback = torch.cat([last[..., 0:2] + last[..., 2:4] * cfg.env.time_step,
                               last[..., 2:]], dim=-1)
@@ -217,6 +233,7 @@ def _orca_humans(cfg: Config, state: EnvState, pos, vel, nbr_pos, nbr_vel,
     return out.reshape(B, A, 2)
 
 
+@spanned("env.orca")
 def get_human_actions(cfg: Config, state: EnvState) -> torch.Tensor:
     """New velocities (B, A, 2) for all humans (crowd_sim.py:163-194): ORCA
     or social force on the neighbours of build_human_neighbor_inputs."""
@@ -286,13 +303,15 @@ def calc_human_future_traj(cfg: Config, state: EnvState, visibility,
         raise ValueError(f"unknown prediction method {method}")
     hidden = ~(visibility & active)
     return torch.where(hidden[:, None, :, None],
-                       torch.tensor(HIDDEN_FUTURE, device=traj.device), traj)
+                       _constant(HIDDEN_FUTURE, traj.device,
+                                 "sync.truth_hidden"), traj)
 
 
 # --------------------------------------------------------------------------
 # observation and reward
 # --------------------------------------------------------------------------
 
+@spanned("env.observe")
 def generate_ob(cfg: Config, state: EnvState, reset: bool
                 ) -> Tuple[Observation, EnvState]:
     """The dict observation, with belief updates folded back into the state
@@ -347,6 +366,7 @@ def generate_ob(cfg: Config, state: EnvState, reset: bool
     return obs, state
 
 
+@spanned("env.reward")
 def calc_reward(cfg: Config, state: EnvState, future_traj, phase: str,
                 action_v=None, action_r=None, spin_coef=None):
     """R(s, a) (crowd_sim_var_num.py:465-561; JAX ``crowd_sim.py:353-429``).
@@ -506,7 +526,7 @@ def end_goal_updates(cfg: Config, u, state: EnvState) -> EnvState:
     active = _active_mask(cfg, state.human_num)
     h = state.humans
     reached = active & (torch.linalg.norm(h.goal - h.pos, dim=-1) < h.radius)
-    if not bool(reached.any()):
+    if not _read_any(reached, "sync.end_goal"):
         return state
     if not _unicycle(cfg):
         return _respawn_humans(cfg, u, state, reached)
@@ -562,7 +582,7 @@ def vary_human_num(cfg: Config, u, state: EnvState, pred_rule: bool
     new_num = torch.where(do_remove, n - remove_num, n + add_num)
     is_new = ~do_remove[:, None] & (idx >= n[:, None]) & (idx < new_num[:, None])
     state = _respawn_humans(cfg, u_gen, state, is_new, placed=idx < n[:, None])
-    dummy = torch.tensor(BELIEF_DUMMY, device=n.device)
+    dummy = _constant(BELIEF_DUMMY, n.device, "sync.vary_beliefs")
     return dataclasses.replace(
         state, human_num=new_num,
         last_human_states=torch.where(is_new[..., None], dummy,
@@ -620,7 +640,8 @@ def reset(cfg: Config, gens: List[torch.Generator], device
                         goal=full((B, A, 2), 15.0),
                         radius=full((B, A), cfg.humans.radius),
                         v_pref=full((B, A), cfg.humans.v_pref))
-    dummy = torch.tensor(BELIEF_DUMMY, device=device).expand(B, A, 5)
+    dummy = _constant(BELIEF_DUMMY, device, "sync.reset_beliefs").expand(
+        B, A, 5)
     L = cfg.obs_buffer_len if cfg.sim.predict_method == "inferred" else 0
     state = EnvState(
         gens=list(gens), robot=robot, humans=humans, human_num=human_num,
@@ -689,6 +710,7 @@ def scripted_robot_action(cfg: Config, state: EnvState, policy: str,
         state.orca_neighbor_dist)
 
 
+@spanned("env.step")
 def step(cfg: Config, state: EnvState, action, phase: str,
          robot_policy: str = "network", spin_coef=None
          ) -> Tuple[EnvState, Observation, torch.Tensor, torch.Tensor, StepInfo]:
@@ -709,14 +731,16 @@ def step(cfg: Config, state: EnvState, action, phase: str,
     if robot_policy not in ROBOT_POLICIES:
         raise ValueError(f"robot_policy must be one of {ROBOT_POLICIES}, "
                          f"got {robot_policy!r}")
+    count("env.steps")
     unicycle = _unicycle(cfg)
     # this step's random numbers, a fixed count per env whatever happens
     varies = cfg.sim.human_num_range > 0
     sizes = ((goal_change_draws(cfg) if cfg.humans.random_goal_changing else 0),
              (end_goal_draws(cfg) if cfg.humans.end_goal_changing else 0),
              (vary_draws(cfg) if varies else 0))
-    u_goal, u_end, u_vary = spawn.split_draws(
-        spawn.draw_uniform(state.gens, sum(sizes), action.device), sizes)
+    with span("env.draws"):
+        u = spawn.draw_uniform(state.gens, sum(sizes), action.device)
+    u_goal, u_end, u_vary = spawn.split_draws(u, sizes)
 
     # the ground-truth future of the pre-step state: the test phase's
     # intrusion accounting (:385-388) and the CrowdSimPred ORCA robot's
@@ -724,8 +748,9 @@ def step(cfg: Config, state: EnvState, action, phase: str,
     truth = None
     if phase == "test" or (robot_policy == "orca"
                            and cfg.sim.predict_method != "none"):
-        truth = calc_human_future_traj(cfg, state, state.visible_masks,
-                                       "truth")
+        with span("env.truth"):
+            truth = calc_human_future_traj(cfg, state, state.visible_masks,
+                                           "truth")
     action_v = action_r = None
     if robot_policy != "network":
         a = scripted_robot_action(cfg, state, robot_policy, truth)
@@ -773,19 +798,22 @@ def step(cfg: Config, state: EnvState, action, phase: str,
     # every-5 s population and goal events, guarded by the step counter
     steps_per_5s = int(round(5.0 / cfg.env.time_step))
     at_5s = (state.step_count % steps_per_5s) == 0
-    if varies and bool(at_5s.any()):
-        varied = vary_human_num(cfg, u_vary, state,
-                                pred_rule=cfg.sim.predict_method != "none")
-        state = tree_where(at_5s, varied, state)
+    with span("env.events"):
+        if varies and _read_any(at_5s, "sync.events_5s"):
+            varied = vary_human_num(cfg, u_vary, state,
+                                    pred_rule=cfg.sim.predict_method != "none")
+            state = tree_where(at_5s, varied, state)
 
     obs, state = generate_ob(cfg, state, reset=False)
 
-    if cfg.humans.random_goal_changing and bool(at_5s.any()):
-        regoaled = update_human_goals_randomly(cfg, u_goal, state)
-        goal = torch.where(at_5s[:, None, None], regoaled.humans.goal,
-                           state.humans.goal)
-        state = dataclasses.replace(
-            state, humans=dataclasses.replace(state.humans, goal=goal))
-    if cfg.humans.end_goal_changing:
-        state = end_goal_updates(cfg, u_end, state)
+    with span("env.events"):
+        if cfg.humans.random_goal_changing and \
+                _read_any(at_5s, "sync.events_5s"):
+            regoaled = update_human_goals_randomly(cfg, u_goal, state)
+            goal = torch.where(at_5s[:, None, None], regoaled.humans.goal,
+                               state.humans.goal)
+            state = dataclasses.replace(
+                state, humans=dataclasses.replace(state.humans, goal=goal))
+        if cfg.humans.end_goal_changing:
+            state = end_goal_updates(cfg, u_end, state)
     return state, obs, reward, done, info

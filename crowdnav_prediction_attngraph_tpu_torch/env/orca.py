@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count, span
+
 _EPS = 1e-5      # RVO_EPSILON
 _SAFE = 1e-9     # guard against 0/0 in degenerate (coincident-agent) states
 
@@ -209,13 +211,19 @@ def orca_velocity_batch(ego_pos, ego_vel, ego_radius, ego_max_speed,
     Radii must already include RVO2's +0.01 margin and the safety space;
     ``pref_vel`` is the unit-clipped preferred velocity. LP3 runs only on the
     egos whose LP2 failed (one host sync to find them)."""
-    d, p, valid = orca_lines(ego_pos, ego_vel, ego_radius, nbr_pos, nbr_vel,
-                             nbr_radius, nbr_mask, time_step, time_horizon,
-                             neighbor_dist)
-    result, fail = _lp2(d, p, valid, ego_max_speed, pref_vel, False)
-    idx = (fail < d.shape[-2]).nonzero().squeeze(-1)
-    if idx.numel():
-        lp3 = _lp3(d[idx], p[idx], valid[idx], fail[idx], ego_max_speed[idx],
-                   result[idx])
-        result = result.index_copy(0, idx, lp3)
+    count("orca.egos", ego_pos.shape[0])
+    with span("orca.lines"):
+        d, p, valid = orca_lines(ego_pos, ego_vel, ego_radius, nbr_pos,
+                                 nbr_vel, nbr_radius, nbr_mask, time_step,
+                                 time_horizon, neighbor_dist)
+    with span("orca.lp2"):
+        result, fail = _lp2(d, p, valid, ego_max_speed, pref_vel, False)
+    with span("orca.lp3"):
+        count("sync.orca_lp3")
+        idx = (fail < d.shape[-2]).nonzero().squeeze(-1)
+        count("orca.lp3_egos", idx.numel())
+        if idx.numel():
+            lp3 = _lp3(d[idx], p[idx], valid[idx], fail[idx],
+                       ego_max_speed[idx], result[idx])
+            result = result.index_copy(0, idx, lp3)
     return result

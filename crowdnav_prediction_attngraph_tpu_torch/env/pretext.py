@@ -16,9 +16,11 @@ import torch
 from ..config import Config
 from ..models.gst.predictor import gst_predict
 from ..models.gst.st_model import STModel
+from ..utils.profiling import spanned
 from .types import EnvState, Observation
 
 
+@spanned("gst.pretext")
 def pretext_process(cfg: Config, gst_model: STModel, state: EnvState,
                     obs: Observation, rew):
     """Returns (new_state, new_obs, new_rew, penalty); rew/penalty (B,)."""

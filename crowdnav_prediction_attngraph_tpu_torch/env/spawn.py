@@ -19,6 +19,8 @@ from typing import List, Tuple
 
 import torch
 
+from ..utils.profiling import count
+
 TWO_PI = 2.0 * math.pi
 ROBOT_CANDIDATES = 24
 SPAWN_ROUNDS = 10
@@ -44,6 +46,7 @@ def sample_robot_position(u, arena_size: float, min_goal_dist: float):
     ok = torch.linalg.norm(vals[..., :2] - vals[..., 2:], dim=-1) >= min_goal_dist
     first = ok.to(torch.uint8).argmax(dim=1)
     chosen = vals[torch.arange(B, device=u.device), first]
+    count("sync.reset_robot")
     fallback = torch.tensor([-arena_size, -arena_size, arena_size, arena_size],
                             device=u.device, dtype=u.dtype)
     chosen = torch.where(ok.any(dim=1)[:, None], chosen, fallback)

@@ -19,6 +19,7 @@ import torch
 
 from ..config import Config
 from ..models.gst.st_model import STModel
+from ..utils.profiling import count, span, spanned
 from . import crowd_sim
 from .pretext import pretext_process
 from .types import EnvState, tree_scatter
@@ -36,6 +37,7 @@ def vec_reset_with_pretext(cfg: Config, gens: List[torch.Generator],
     return states, obs
 
 
+@spanned("vec.step")
 def vec_step(cfg: Config, states: EnvState, actions, phase: str,
              gst_model: Optional[STModel], spin_coef=None):
     """Batched step with auto-reset (``vector.py:54-93``). Returns (states',
@@ -48,12 +50,16 @@ def vec_step(cfg: Config, states: EnvState, actions, phase: str,
     speed ``desired_velocity`` at 0 again."""
     states, obs, rew, done, info = crowd_sim.step(cfg, states, actions, phase,
                                                   spin_coef=spin_coef)
-    idx = done.nonzero()[:, 0]
-    if idx.numel():
-        fresh_states, fresh_obs = crowd_sim.reset(
-            cfg, [states.gens[i] for i in idx.tolist()], actions.device)
-        states = tree_scatter(idx, fresh_states, states)
-        obs = tree_scatter(idx, fresh_obs, obs)
+    with span("vec.auto_reset"):
+        count("sync.vec_done")
+        idx = done.nonzero()[:, 0]
+        count("vec.resets", idx.numel())
+        if idx.numel():
+            count("sync.vec_reset_ids")
+            fresh_states, fresh_obs = crowd_sim.reset(
+                cfg, [states.gens[i] for i in idx.tolist()], actions.device)
+            states = tree_scatter(idx, fresh_states, states)
+            obs = tree_scatter(idx, fresh_obs, obs)
     if cfg.sim.predict_method == "inferred":
         states, obs, rew, penalty = pretext_process(cfg, gst_model, states,
                                                     obs, rew)

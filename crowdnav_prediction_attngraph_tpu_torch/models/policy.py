@@ -15,6 +15,7 @@ from torch import nn
 from ..config import Config
 from ..utils.device import resolve_device
 from ..utils.params import params_tree, tree_to_state_dict
+from ..utils.profiling import spanned
 from . import distributions
 from .policy_net import SelfAttnMergeSRNN
 from .srnn import SRNN
@@ -104,6 +105,7 @@ def _add_time(obs: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v[None] for k, v in obs.items()}
 
 
+@spanned("policy.act")
 @torch.no_grad()
 def act(model: PolicyHead, obs: Mapping[str, torch.Tensor], rnn_h, masks,
         deterministic: bool = True,

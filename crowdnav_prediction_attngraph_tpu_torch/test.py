@@ -37,6 +37,10 @@ GIF (``--render-out``, default ``<out-dir>/test/case_<N>.gif``), as the JAX
 CLI does (``test.py:89-97, 143-152``). Drawing needs matplotlib, imported
 only then.
 
+``--spans`` turns on the port's spans and counters (``utils/profiling``)
+and prints, at the end of the suite, the self time of each span and each
+counter per env step.
+
 Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
@@ -54,7 +58,7 @@ from .algo import evaluation
 from .config import build_config, config_from_snapshot
 from .models.gst.predictor import load_gst
 from .models.policy import load_policy
-from .utils import render
+from .utils import profiling, render
 from .utils.checkpoint import latest_step
 from .utils.device import resolve_device
 
@@ -149,6 +153,9 @@ def _parser():
                    help="log root (default: torch_eval, or --model-dir for a "
                         "scripted run without a snapshot); the log goes to "
                         "<out-dir>/test/test_<step>.log")
+    p.add_argument("--spans", action="store_true",
+                   help="print the port's spans and counters per env step "
+                        "at the end of the suite")
     return p
 
 
@@ -182,6 +189,8 @@ def main(argv=None):
                                       args.ckpt_step)
     cfg, from_snapshot = load_config(args)
     device = resolve_device(args.device)
+    if args.spans:
+        profiling.enable()
     policy = (load_policy(cfg, params, device) if params is not None
               else None)
     gst = (load_gst(cfg.pred, args.gst_params, device)
@@ -232,10 +241,14 @@ def main(argv=None):
                     " ".join(str(x) for x in results["timeout_cases"]))
         print(f"[test] {results['env_steps']} env steps in "
               f"{results['seconds']:.2f} s on {name}", flush=True)
+        if args.spans:
+            print(profiling.per_step_table(profiling.snapshot()), flush=True)
     finally:
         for h in handlers:
             logger.removeHandler(h)
             h.close()
+        if args.spans:
+            profiling.disable()
     return results
 
 

@@ -28,6 +28,11 @@ and the checkpoints, in the single-process layout that ``test`` and
 
   torchrun --nproc-per-node 8 -m crowdnav_prediction_attngraph_tpu_torch.train \\
       --multihost --num-processes 512 --use-linear-lr-decay
+
+``--spans`` turns on the port's spans and counters (``utils/profiling``)
+and prints, at each log interval, the self time of each span and each
+counter per env step since the last print (rank 0's, under
+``--multihost``).
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from .models.policy import load_policy
 from .parallel import launch
 from .test import DEFAULT_GST_PARAMS
 from .utils import checkpoint as ckpt_util
+from .utils import profiling
 from .utils.device import resolve_device
 
 
@@ -118,6 +124,9 @@ def _parser():
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel degree of the wide attention "
                         "projections (--multihost)")
+    p.add_argument("--spans", action="store_true",
+                   help="print the port's spans and counters per env step "
+                        "at each log interval")
     return p
 
 
@@ -144,6 +153,8 @@ def main(argv=None):
     else:
         device = resolve_device(args.device)
     cfg = build_config(args)
+    if args.spans:
+        profiling.enable()
     if is_main:
         os.makedirs(args.output_dir, exist_ok=True)
         with open(os.path.join(args.output_dir, "config.json"), "w") as f:
@@ -244,6 +255,11 @@ def main(argv=None):
 
         if j % args.log_interval == 0:
             flush_pending()
+            if args.spans:
+                if is_main:
+                    print(profiling.per_step_table(profiling.snapshot()),
+                          flush=True)
+                profiling.reset()
         if j % args.log_interval == 0 and len(episode_rewards) > 1 \
                 and is_main:
             total_num_steps = (j + 1) * cfg.ppo.num_processes \
@@ -272,6 +288,8 @@ def main(argv=None):
                 f.write(",".join(str(v) for v in row.values()) + "\n")
     if mesh is not None:
         launch.finalize()
+    if args.spans:
+        profiling.disable()
     return ts
 
 

@@ -1,46 +1,286 @@
 """Tracing/profiling utilities (JAX package ``utils/profiling.py``; the
 reference only logs wall-clock FPS, train.py:222-232).
 
-- ``PhaseTimer``: per-phase wall-clock with a device sync, accumulated into
-  a report (rollout / gae / update / eval phases).
+- The span and counter registry. :func:`span` (a context manager) and
+  :func:`spanned` (its decorator form) time a named block of the port;
+  :func:`count` adds to a named integer counter. Both are off by default:
+  then a span is one flag test that returns a shared null context and a
+  counter does nothing. :func:`enable` turns them on; each span is then
+  stamped with ``time.time_ns()`` at its start and ends that stamp plus its
+  duration on the monotonic ``time.perf_counter_ns()`` (so a step of the
+  wall clock moves no total), remembers its parent span and thread, and opens a ``torch.profiler.record_function``
+  range ``crowdnav.<name>``, so the device ops launched inside it can be
+  matched to it in a profiler trace. A span never synchronises the device:
+  its host time includes whatever blocking read the block makes.
+  :func:`snapshot` returns the raw spans, per-name count, total and self
+  time (the duration less the part its child spans cover) and the
+  counters, with the kernels' launch counts since the last :func:`reset`
+  as ``k1.launches``, ``k2.launches`` and ``k3.launches``; :func:`readings`
+  puts a snapshot per env step, and :func:`per_step_table` prints it.
+- One clock: a Chrome trace that ``torch.profiler`` exports gives each
+  event's ``ts`` in microseconds of the same Unix clock, less the trace's
+  ``baseTimeNanoseconds``; :func:`trace_us` converts a span's stamp.
+- ``PhaseTimer``: per-phase wall-clock with an optional device sync, a
+  view of spans recorded in a registry of its own (always on).
 - ``trace``: context manager around ``torch.profiler`` (CPU ops, and the
   CUDA kernels where there is a card) writing a Chrome trace (viewable in
   chrome://tracing, Perfetto or TensorBoard) to ``log_dir``.
-- ``env_steps_per_s`` and ``edges_per_s``: derived throughput numbers.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import itertools
 import os
+import sys
+import threading
 import time
-from collections import defaultdict
-from typing import Dict
+from typing import Dict, List
 
 import torch
 
+RANGE_PREFIX = "crowdnav."
+# the kernels' entry functions and the names their launch counts take
+_KERNELS = (("k1.launches", "fused_graph_attention"),
+            ("k2.launches", "fused_graph_attention_backward"),
+            ("k3.launches", "packed_masked_attention"))
+
+
+class Registry:
+    """Closed spans and counters. Each registry keeps its own stack of open
+    spans per thread, which gives a span its parent."""
+
+    def __init__(self):
+        self.spans: List[tuple] = []     # (id, name, start_ns, end_ns,
+                                         #  parent id or None, thread id)
+        self.counters: Dict[str, int] = collections.defaultdict(int)
+        self._ids = itertools.count()
+        self._local = threading.local()
+        self._launch_base = _launch_counts()
+
+    def span(self, name: str) -> "_Span":
+        return _Span(self, name)
+
+    def reset(self):
+        self.spans.clear()
+        self.counters.clear()
+        self._launch_base = _launch_counts()
+
+    def totals(self) -> Dict[str, dict]:
+        """{name: {"count", "total_s", "self_s"}} over the closed spans."""
+        child_ns = collections.defaultdict(int)
+        for _, _, t0, t1, parent, _ in self.spans:
+            if parent is not None:
+                child_ns[parent] += t1 - t0
+        out: Dict[str, dict] = {}
+        for sid, name, t0, t1, _, _ in self.spans:
+            t = out.setdefault(name, {"count": 0, "total_s": 0.0,
+                                      "self_s": 0.0})
+            t["count"] += 1
+            t["total_s"] += (t1 - t0) / 1e9
+            t["self_s"] += (t1 - t0 - child_ns[sid]) / 1e9
+        return out
+
+    def snapshot(self) -> dict:
+        launches = _launch_counts()
+        counters = dict(self.counters)
+        for key, n in launches.items():
+            counters[key] = n - self._launch_base.get(key, 0)
+        spans = [{"id": sid, "name": name, "start_ns": t0, "end_ns": t1,
+                  "parent": parent, "thread": tid}
+                 for sid, name, t0, t1, parent, tid in self.spans]
+        return {"spans": spans, "totals": self.totals(),
+                "counters": counters}
+
+
+class _Span:
+    __slots__ = ("registry", "name", "id", "parent", "start", "mono",
+                 "range")
+
+    def __init__(self, registry: Registry, name: str):
+        self.registry, self.name = registry, name
+
+    def __enter__(self):
+        reg = self.registry
+        stack = getattr(reg._local, "stack", None)
+        if stack is None:
+            stack = reg._local.stack = []
+        self.id = next(reg._ids)
+        self.parent = stack[-1].id if stack else None
+        stack.append(self)
+        self.range = torch.profiler.record_function(RANGE_PREFIX + self.name)
+        self.start = time.time_ns()
+        self.mono = time.perf_counter_ns()
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.range.__exit__(*exc)
+        end = self.start + (time.perf_counter_ns() - self.mono)
+        reg = self.registry
+        reg._local.stack.pop()
+        reg.spans.append((self.id, self.name, self.start, end, self.parent,
+                          threading.get_ident()))
+        return False
+
+
+def _launch_counts() -> Dict[str, int]:
+    """The kernels' ``.launches`` counters as they stand (0 before the ops
+    module is loaded)."""
+    mod = sys.modules.get(__name__.rsplit(".", 2)[0] + ".ops.masked_attention")
+    if mod is None:
+        return {key: 0 for key, _ in _KERNELS}
+    return {key: int(getattr(getattr(mod, fn), "launches", 0))
+            for key, fn in _KERNELS}
+
+
+# --- the port's registry -----------------------------------------------------
+
+_ON = False
+_NULL = contextlib.nullcontext()
+_REGISTRY = Registry()
+
+
+def enable():
+    global _ON
+    _ON = True
+
+
+def disable():
+    global _ON
+    _ON = False
+
+
+def reset():
+    """Forget the closed spans and the counters; launch counts start again
+    from here."""
+    _REGISTRY.reset()
+
+
+def snapshot() -> dict:
+    """``{"spans": [...], "totals": {...}, "counters": {...}}`` of the port's
+    registry (see :meth:`Registry.snapshot`)."""
+    return _REGISTRY.snapshot()
+
+
+def span(name: str):
+    """A span ``name`` around the block while tracing is on; otherwise the
+    shared null context."""
+    if not _ON:
+        return _NULL
+    return _Span(_REGISTRY, name)
+
+
+def spanned(name: str):
+    """Decorator form of :func:`span`: each call is a span ``name`` while
+    tracing is on (the flag is read at every call)."""
+    def deco(func):
+        @functools.wraps(func)
+        def wrapper(*args, **kwargs):
+            if not _ON:
+                return func(*args, **kwargs)
+            with _Span(_REGISTRY, name):
+                return func(*args, **kwargs)
+        return wrapper
+    return deco
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` (a host int) to counter ``name`` while tracing is on."""
+    if _ON:
+        _REGISTRY.counters[name] += n
+
+
+def trace_us(t_ns: int, base_ns: int) -> float:
+    """A ``time.time_ns()`` stamp on a Chrome trace's clock: the trace's
+    ``ts`` microseconds, given its ``baseTimeNanoseconds``."""
+    return (t_ns - base_ns) / 1e3
+
+
+def readings(snap: dict) -> dict:
+    """A snapshot per env step (one batched ``crowd_sim.step``, counted by
+    ``env.steps``): each span's calls, self and total ms (largest self time
+    first) and each counter, and the readings of the layers: ``orca_ms``
+    and ``auto_reset_ms`` (the ``env.orca`` and ``vec.auto_reset`` spans),
+    ``env_step_ms``, ``orca_lp3_share`` (``orca.lp3_egos`` over
+    ``orca.egos``, %), ``env_syncs`` (the ``sync.*`` counters) and
+    ``backward_ms`` (per ``ppo.backward`` call: one minibatch step)."""
+    tot, c = snap["totals"], snap["counters"]
+    steps = c.get("env.steps", 0)
+    n = max(steps, 1)
+
+    def ms(name, per):
+        return tot[name]["total_s"] * 1e3 / per if name in tot else None
+    return {
+        "env_steps": steps,
+        "orca_ms": ms("env.orca", n),
+        "env_step_ms": ms("env.step", n),
+        "auto_reset_ms": ms("vec.auto_reset", n),
+        "orca_lp3_share": (100.0 * c.get("orca.lp3_egos", 0) / c["orca.egos"]
+                           if c.get("orca.egos") else None),
+        "env_syncs": sum(v for k, v in c.items()
+                         if k.startswith("sync.")) / n,
+        "backward_ms": (ms("ppo.backward", tot["ppo.backward"]["count"])
+                        if "ppo.backward" in tot else None),
+        "spans_per_step": {
+            name: {"calls": t["count"] / n, "self_ms": t["self_s"] * 1e3 / n,
+                   "total_ms": t["total_s"] * 1e3 / n}
+            for name, t in sorted(tot.items(),
+                                  key=lambda kv: -kv[1]["self_s"])},
+        "counters_per_step": {k: v / n for k, v in sorted(c.items())},
+    }
+
+
+def per_step_table(snap: dict) -> str:
+    """The operator's table of a snapshot (see :func:`readings`): each
+    span's calls, self and total ms per env step, then each counter per env
+    step."""
+    r = readings(snap)
+    lines = [f"{'span':<22}{'calls/step':>11}{'self ms/step':>14}"
+             f"{'total ms/step':>15}"]
+    for name, t in r["spans_per_step"].items():
+        lines.append(f"{name:<22}{t['calls']:>11.3f}{t['self_ms']:>14.3f}"
+                     f"{t['total_ms']:>15.3f}")
+    lines.append(f"{'counter':<22}{'per step':>11}")
+    for name, v in r["counters_per_step"].items():
+        lines.append(f"{name:<22}{v:>11.3f}")
+    return "\n".join(lines)
+
+
+# --- phases and traces -------------------------------------------------------
 
 class PhaseTimer:
+    """Per-phase wall-clock totals over spans of a registry of its own."""
+
     def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
+        self.registry = Registry()
 
     @contextlib.contextmanager
     def phase(self, name: str, sync=None):
-        """Time the block; with ``sync`` (a CUDA device) the device's queued
-        work is waited for before the clock stops (the CPU has none)."""
-        t0 = time.perf_counter()
-        yield
-        if sync is not None and torch.device(sync).type == "cuda":
-            torch.cuda.synchronize(sync)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
+        """Time the block as a span; with ``sync`` (a CUDA device) the
+        device's queued work is waited for before the span closes (the CPU
+        has none)."""
+        with self.registry.span(name):
+            yield
+            if sync is not None and torch.device(sync).type == "cuda":
+                torch.cuda.synchronize(sync)
+
+    @property
+    def totals(self) -> Dict[str, float]:
+        return {k: t["total_s"] for k, t in self.registry.totals().items()}
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        return {k: t["count"] for k, t in self.registry.totals().items()}
 
     def report(self) -> str:
         lines = []
+        counts = self.counts
         for name, total in sorted(self.totals.items(),
                                   key=lambda kv: -kv[1]):
-            n = self.counts[name]
+            n = counts[name]
             lines.append(f"{name:>16}: {total:8.3f}s total, "
                          f"{total / max(n, 1) * 1e3:8.2f} ms/call x{n}")
         return "\n".join(lines)
@@ -61,12 +301,3 @@ def trace(log_dir: str):
         if cuda:
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-def env_steps_per_s(num_envs: int, num_steps: int, seconds: float) -> float:
-    return num_envs * num_steps / seconds
-
-
-def edges_per_s(rows: int, num_agents: int, seconds: float) -> float:
-    """Interaction-graph edge throughput of one attention pass."""
-    return rows * num_agents * num_agents / seconds

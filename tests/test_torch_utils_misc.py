@@ -2,7 +2,7 @@
 
 * ``running_mean_std``: ``rms_update`` / ``normalize_obs`` /
   ``normalize_reward`` against the JAX functions to 1e-6 over three batches;
-* ``profiling``: ``PhaseTimer``, ``trace`` on the CPU, and the two rates;
+* ``profiling``: ``PhaseTimer`` and ``trace`` on the CPU;
 * ``torch_import`` on synthetic reference ``state_dict``s: a JAX
   ``init_params`` tree from a seed, mapped back to the reference's key names
   and torch layouts (the inverse of the JAX ``utils/torch_import.py``),
@@ -111,8 +111,6 @@ def test_phase_timer_trace_and_rates(tmp_path):
         torch.ones(64, 64) @ torch.ones(64, 64)
     assert any(e.name == "aten::matmul" for e in prof.events())
     assert os.path.getsize(tmp_path / "tr" / "trace.json") > 0
-    assert profiling.env_steps_per_s(64, 30, 2.0) == 960.0
-    assert profiling.edges_per_s(960, 20, 0.5) == 960 * 400 / 0.5
 
 
 # ------------------------------------------------- reference state_dicts

@@ -28,6 +28,7 @@ import sys
 import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -41,9 +42,41 @@ from crowdnav_prediction_attngraph_tpu_torch.models.gst import (  # noqa: E402
     dataset, trainer)
 from crowdnav_prediction_attngraph_tpu_torch.models.gst.st_model import (  # noqa: E402
     init_gst)
-from profile_train import _Stages  # noqa: E402
 
 BATCH, LR = 64, 1e-3
+
+
+class _OpCount(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+class _Stages:
+    """Per named stage: the operators of its first call (counted, not
+    timed: the counting mode slows every operator) and the synchronised host
+    time of every later call."""
+
+    def __init__(self):
+        self.ms, self.ops, self.calls = {}, {}, {}
+
+    def run(self, name, fn):
+        if name not in self.ops:
+            with _OpCount() as c:
+                out = fn()
+            self.ops[name] = c.n
+            return out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        self.calls[name] = self.calls.get(name, 0) + 1
+        return out
 
 
 def main(argv=None):
