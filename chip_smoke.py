@@ -41,14 +41,27 @@ Phases, each printing one JSON line with its seconds before the next starts:
    back-to-back calls, each group between one pair of CUDA events), and
    reads the device kernels behind one call of each from a torch.profiler
    trace;
-4. evaluate: loads the committed weights and runs the port's seeded
+4. orca: holds the ORCA kernel (``csrc/orca_solve.cu``, launched by
+   ``env/orca.py``'s ``orca_velocity_batch``) against its plain version on
+   the card bit for bit, in f32 and f64, with a second run that must give
+   the same bits, at the paths' shapes (``utils/orca_oracle.SCENE_SHAPES``:
+   1,280 x 21 and 12,800 x 51 egos x lines for the humans of the flagship
+   and config 5, 64 x 120 and 500 x 300 for the scripted ORCA robot's truth
+   rollout) in seeded crowds (``utils/orca_oracle.scene_tensors``) where a
+   fifth to a
+   quarter of the egos run LP3; times the kernel (CUDA events over
+   back-to-back calls, and its device time from a profiler trace) and the
+   plain version (at 500 x 300 in chunks of egos: its LP3 builds (egos, n,
+   n, n) tensors) beside the bound (each input read once); fails unless a
+   profiler trace of a call holds one device kernel;
+5. evaluate: loads the committed weights and runs the port's seeded
    evaluation of the flagship pair (trained_models/
    GST_predictor_rand_tpu_r5_selfgst, test cases 0..31 as one batch, K1 in
    bf16 in the policy), with every launch count zeroed just before and read
    just after; fails on a non-finite metric, success_rate < 0.70, or a
    kernel of the path that never launched. The policy's first action is also
    checked against the same weights on the CPU;
-5. train: the flagship recipe from the same snapshot (64 envs, 30 steps, 5
+6. train: the flagship recipe from the same snapshot (64 envs, 30 steps, 5
    epochs x 2 minibatches, lr 4e-5 with linear decay, K1/K2 in bf16),
    warm-started from the committed policy and GST weights, runs 2
    ``train_iteration``s with the launch counts zeroed just before and read
@@ -60,7 +73,7 @@ Phases, each printing one JSON line with its seconds before the next starts:
    error <= 1e-3 on each leaf of the attention block), a timed update, and a
    checkpoint whose params .npz, reloaded with load_policy, must give the
    same deterministic action bit for bit;
-6. edges: the edges/s bench (``ops.bench_edges``) at its full shapes,
+7. edges: the edges/s bench (``ops.bench_edges``) at its full shapes,
    ``single_device`` (K3 and its plain version at rows = 4096) and
    ``fused_sweep`` (K1 and its plain version at rows 480, 1920 and 7680),
    with the launch counts zeroed just before and read just after; fails on
@@ -68,24 +81,25 @@ Phases, each printing one JSON line with its seconds before the next starts:
    other than the bench's own (K3 once per timed or warm-up call of
    ``single_device``, K1 once per such call of ``fused_sweep`` at each row
    count, K2 never);
-7. scripted: the scripted baselines through ``evaluate`` (32 cases each,
+8. scripted: the scripted baselines through ``evaluate`` (32 cases each,
    one batch, cut at 40 steps): the ORCA and the social-force robot in
    CrowdSimVarNum with 20 ORCA humans, and the ORCA robot among 20
-   social-force humans; fails on a kernel launch (the path has none), a
-   non-finite metric, or outcome rates that do not sum to 1;
-8. variants_eval: the network policy from a seeded ``init_params``
+   social-force humans; fails on an attention kernel's launch (the path
+   has none; ORCA's kernel runs), a non-finite metric, or outcome rates
+   that do not sum to 1;
+9. variants_eval: the network policy from a seeded ``init_params``
    (untrained: rates printed, not gated) under BASELINE config 1
    (CrowdSimVarNum, 5 humans), config 2 (CrowdSimPred const_vel and truth,
    10 humans) and the truth env with a visible robot, 32 cases each (cut
    at 20 steps), the counts zeroed before and read after each; fails
    unless K1 launched in each (K2 and K3 never);
-9. variants_train: one PPO iteration of BASELINE config 5 as the train CLI
+10. variants_train: one PPO iteration of BASELINE config 5 as the train CLI
    builds it (CrowdSimPredRealGST, 10-50 humans: A = 50; 64 envs x 30
    steps; the committed GST export), K1 at 64 x 50 and 960 x 50 (41
    launches) and K2 at 960 x 50 (10); then the PPO gradient of a further
    rollout's first minibatch through the kernels against the plain
    versions, to the train phase's bounds;
-10. unicycle_train: one PPO iteration of the unicycle recipe
+11. unicycle_train: one PPO iteration of the unicycle recipe
    (trained_models/GST_predictor_unicycle_scratch_r5/config.json:
    CrowdSimPredRealGST, 20 humans, unicycle, v_pref 0.6, 64 envs x 30
    steps) with the committed GST export, warm-started from the committed
@@ -93,14 +107,14 @@ Phases, each printing one JSON line with its seconds before the next starts:
    annealed coefficient 2.25): K1 = 41 and K2 = 10 launches; fails on a
    non-finite loss or rewards without the spin term (one step against the
    same step at coefficient 0); then the gradient check;
-11. policy_variants: ``sort_humans=False`` under config 2 (CrowdSimPred
+12. policy_variants: ``sort_humans=False`` under config 2 (CrowdSimPred
    truth, 10 humans), ``use_hr_attn=False`` and ``use_self_attn=False``
    under the flagship env, DS-RNN under config 1, each from a seeded
    ``init_params`` (rates printed, not gated): 32 cases cut at 20 steps,
    then one PPO iteration (64 envs x 30 steps), the counts read for each:
    K1 in the first two and never in the last two, K2 in the first two
    updates; the gradient check on ``sort_humans=False``'s;
-12. gst_train: the GST training stack through the port's entry points.
+13. gst_train: the GST training stack through the port's entry points.
    ``collect_dataset`` on the card (CrowdSimVarNum, 20 ORCA humans: 16
    envs x 256 steps from seed 0 for train, 4 x 256 from seed 1 for val),
    the records checked as tests/test_gst_training.py:24-32 checks them
@@ -117,7 +131,7 @@ Phases, each printing one JSON line with its seconds before the next starts:
    ``epoch_4/params.npz`` reloaded with ``load_gst`` as the flagship env's
    predictor, one ``pretext_process`` batch and ``gst_predict`` on it must
    be finite; K1, K2 and K3 must not launch;
-13. parallel: the data-parallel train step (``parallel/``) in a world of
+14. parallel: the data-parallel train step (``parallel/``) in a world of
    one process over NCCL (``launch.initialize`` with a FileStore; the
    card's machine has one card, and the multi-rank checks run on gloo in
    tests/test_torch_parallel*.py and tests/test_torch_edge_partition.py).
@@ -130,7 +144,7 @@ Phases, each printing one JSON line with its seconds before the next starts:
    3e-5), both timed; ``bench_edges.weak_scaling`` and
    ``weak_scaling_train`` at n = 1; fails on another backend than NCCL.
    The group is destroyed at the end;
-14. off_path: the modules off the training path, each part timed by
+15. off_path: the modules off the training path, each part timed by
    ``utils/profiling.PhaseTimer`` with the counts zeroed before and read
    after it. native: the port's C++ ORCA engine built with g++, and the
    humans' ORCA velocities of the flagship state (64 envs x 20 humans
@@ -159,8 +173,19 @@ Phases, each printing one JSON line with its seconds before the next starts:
    ``record_episode`` runs, ``render_*`` and ``plot`` do not (the card's
    machine has no matplotlib).
 
-Phases 8 and 11 cut their suites at 20 steps (40 before the off_path
-phase came), so the whole script stays under 300 s of phases.
+Phases 9 and 12 cut their suites at 20 steps (40 before the off_path
+phase came), so the phases but orca stay under 300 s; orca adds ~20 s,
+most of it the plain version at 500 x 300.
+
+Every phase from evaluate on counts the ORCA kernel's launches beside
+K1-K3's, zeroed and read at the same points, and fails on another count
+than its env steps give (``orca_solves``: one a step for ORCA humans, one
+for the ORCA robot, ``buffer_len`` for each truth rollout of the test
+phase, the ORCA robot or a ``truth`` env's observation; a ``truth`` env's
+training bounded by its auto-resets): train 2 x 30 = 60, the suites
+``buffer_len`` + 1 or + 2 a lock-step step; edges none, gst_train some,
+off_path reported. The kernels line gives the ORCA entry those launches
+by phase.
 
 The kernels line also gives each kernel's device launches per call and the
 registers and spills that ptxas reported for each of its CUDA functions.
@@ -200,6 +225,7 @@ from crowdnav_prediction_attngraph_tpu_torch.config import (
     varnum_config)
 from crowdnav_prediction_attngraph_tpu_torch.env import (
     crowd_sim, gym_adapter, lidar)
+from crowdnav_prediction_attngraph_tpu_torch.env import orca
 from crowdnav_prediction_attngraph_tpu_torch.env.orca import (
     _lp2, orca_lines, orca_velocity_batch)
 from crowdnav_prediction_attngraph_tpu_torch.env.pretext import pretext_process
@@ -228,7 +254,8 @@ from crowdnav_prediction_attngraph_tpu_torch.runtime import native
 from crowdnav_prediction_attngraph_tpu_torch.utils import (
     checkpoint, profiling, render, running_mean_std as rms)
 from crowdnav_prediction_attngraph_tpu_torch.utils.orca_oracle import (
-    orca_velocity_np)
+    SCENE_SHAPES, SCENE_TIME_HORIZON, SCENE_TIME_STEP, lp2_failures,
+    orca_velocity_np, plain_solve, scene_tensors)
 from crowdnav_prediction_attngraph_tpu_torch.utils.recorder import Recorder
 from crowdnav_prediction_attngraph_tpu_torch.utils.params import (
     flatten_tree, state_dict_to_tree)
@@ -427,6 +454,27 @@ def device_kernels(fn) -> list:
         print(f"chip_smoke: profiler unavailable: {exc}", file=sys.stderr)
         return None
     return names or None
+
+
+def device_ms(fn, calls: int = 20):
+    """The mean device time of the kernels one call of ``fn`` runs, from a
+    torch.profiler trace of ``calls`` calls after a warm-up call (the events'
+    ``time_ms`` of a call shorter than its launch reads the host's rate);
+    None if the trace holds no device activity."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as exc:  # the trace is a report, not a check
+        print(f"chip_smoke: profiler unavailable: {exc}", file=sys.stderr)
+        return None
+    return sum(us) / calls / 1e3 if us else None
 
 
 def ptxas_summary(report: str) -> dict:
@@ -742,17 +790,104 @@ def plain_kernels():
          masked_attention.fused_graph_attention_backward) = saved
 
 
+ORCA = "orca_solve"
+ATTENTION = ("K1_fused_graph_attention", "K2_fused_graph_attention_backward",
+             "K3_packed_masked_attention")
+
+
 def zero_counts():
     fused_graph_attention.launches = 0
     fused_graph_attention_backward.launches = 0
     packed_masked_attention.launches = 0
+    orca_velocity_batch.launches = 0
 
 
 def read_counts() -> dict:
     return {"K1_fused_graph_attention": fused_graph_attention.launches,
             "K2_fused_graph_attention_backward":
                 fused_graph_attention_backward.launches,
-            "K3_packed_masked_attention": packed_masked_attention.launches}
+            "K3_packed_masked_attention": packed_masked_attention.launches,
+            ORCA: orca_velocity_batch.launches}
+
+
+def attention_counts(launches) -> dict:
+    """The attention kernels' counts of ``launches``, without ORCA's."""
+    return {k: launches[k] for k in ATTENTION}
+
+
+def orca_solves(cfg, phase: str, robot: str, steps: int,
+                resets: int) -> tuple:
+    """The ORCA solves (one kernel launch each on the card) that ``steps``
+    lock-step ``crowd_sim.step`` calls and ``resets`` ``crowd_sim.reset``
+    calls make, as (least, most). A step solves once for ORCA humans, once
+    for the ORCA robot, ``buffer_len`` times for the truth rollout of the
+    test phase or of the ORCA robot in a predicting env, and as many again
+    for a ``truth`` env's observation, which a reset makes too. The most
+    adds one auto-reset a step where resets cost solves (a ``truth`` env's
+    training: the auto-reset runs only on steps where an env is done)."""
+    k = cfg.buffer_len
+    predict = cfg.sim.predict_method
+    rollout = phase == "test" or (robot == "orca" and predict != "none")
+    per_step = (int(cfg.humans.policy == "orca") + int(robot == "orca")
+                + (k if rollout else 0) + (k if predict == "truth" else 0))
+    per_reset = k if predict == "truth" else 0
+    least = steps * per_step + resets * per_reset
+    return least, least + (steps * per_reset if phase == "train" else 0)
+
+
+def check_orca_launches(name, got: int, solves: tuple):
+    least, most = solves
+    if not least <= got <= most:
+        fail(f"{name}: {got} ORCA kernel launches, expected "
+             f"{least if least == most else solves}")
+
+
+def check_orca(egos: int, n: int, device) -> dict:
+    """The ORCA kernel against its plain version at one shape: bit-equal in
+    f32 and f64, the same bits on a second run, the egos that run LP3 (the
+    plain LP2's failures), and both timed. The bound reads each input once
+    and writes the result (the ~60 operations a line are far below the
+    bytes' time); the plain version is timed in its chunks."""
+    out = {"egos": egos, "lines": n}
+    def kernel(args):
+        return orca_velocity_batch(*args[:9], SCENE_TIME_STEP,
+                                   SCENE_TIME_HORIZON, args[9])
+    for dtype, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        args = scene_tensors(egos, n, 7, device, dtype)
+        got, again = kernel(args), kernel(args)
+        plain = plain_solve(args)
+        torch.cuda.synchronize()
+        out[f"bitwise_{tag}"] = bool(torch.equal(got, plain))
+        out[f"bitwise_second_run_{tag}"] = bool(torch.equal(got, again))
+        if not (out[f"bitwise_{tag}"] and out[f"bitwise_second_run_{tag}"]):
+            fail(f"orca: kernel != plain at {egos} x {n} {tag}: max abs "
+                 f"{(got - plain).abs().max().item()}, {out}")
+    args = scene_tensors(egos, n, 7, device)
+    out["lp3_egos"] = lp2_failures(args)
+    out["ms"] = time_ms(lambda: kernel(args), reps=20)
+    out["device_ms"] = device_ms(lambda: kernel(args))
+    out["plain_ms"] = time_ms(lambda: plain_solve(args), reps=1, groups=3)
+    nbytes = sum(t.numel() * t.element_size() for t in args) + egos * 2 * 4
+    out["bound_ms"], out["bound_by"] = bound_ms(60.0 * egos * n, nbytes,
+                                                torch.float32)
+    out["device_kernels"] = device_kernels(lambda: kernel(args))
+    return out
+
+
+def phase_orca(device) -> list:
+    """The ORCA kernel at the paths' shapes (``SCENE_SHAPES``); one call
+    must run one device kernel, read from a profiler trace, which must
+    hold it."""
+    t0 = time.perf_counter()
+    before = orca_velocity_batch.launches
+    shapes = [check_orca(egos, n, device) for egos, n in SCENE_SHAPES]
+    launches = orca_velocity_batch.launches - before
+    emit("orca", t0, shapes=shapes, launches=launches)
+    for m in shapes:
+        if m["device_kernels"] is None or len(m["device_kernels"]) != 1:
+            fail(f"orca: device kernels of a call at {m['egos']} x "
+                 f"{m['lines']}: {m['device_kernels']} (one expected)")
+    return shapes
 
 
 def phase_evaluate(cfg, gst, device) -> dict:
@@ -785,6 +920,8 @@ def phase_evaluate(cfg, gst, device) -> dict:
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t_eval
     launches = read_counts()
+    check_orca_launches("evaluate", launches[ORCA], orca_solves(
+        cfg, "test", "network", res["env_steps"] // N_CASES, 1))
     line = evaluation.format_results(res)
     metrics = {k: res[k] for k in ("success_rate", "collision_rate",
                                    "timeout_rate", "nav_time", "path_length",
@@ -875,8 +1012,10 @@ def phase_train(cfg, gst, device) -> dict:
               TRAIN_ITERS * (p.num_steps + 1 + n_updates),
               "K2_fused_graph_attention_backward": TRAIN_ITERS * n_updates,
               "K3_packed_masked_attention": 0}
-    if launches != expect:
+    if attention_counts(launches) != expect:
         fail(f"train launches {launches}, expected {expect}")
+    check_orca_launches("train", launches[ORCA], orca_solves(
+        cfg, "train", "network", TRAIN_ITERS * p.num_steps, 0))
     if not all(math.isfinite(v) for m in metrics for v in m.values()):
         fail(f"non-finite train metric: {metrics}")
     after = ts.model.state_dict()
@@ -964,6 +1103,8 @@ def run_suites(suites, device, policy_of, gst=None,
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
         launches = read_counts()
+        check_orca_launches(name, launches[ORCA], orca_solves(
+            cfg, "test", robot, res["env_steps"] // N_CASES, 1))
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         runs[name] = {
@@ -979,9 +1120,9 @@ def run_suites(suites, device, policy_of, gst=None,
 
 
 def phase_scripted(device) -> dict:
-    """The scripted baselines (no kernel): the ORCA and the social-force
-    robot in CrowdSimVarNum with 20 ORCA humans, and the ORCA robot among
-    20 social-force humans, 32 cases each."""
+    """The scripted baselines (no attention kernel): the ORCA and the
+    social-force robot in CrowdSimVarNum with 20 ORCA humans, and the ORCA
+    robot among 20 social-force humans, 32 cases each."""
     t0 = time.perf_counter()
     varnum = varnum_config(human_num=20)
     sf_humans = varnum.replace(humans=dataclasses.replace(
@@ -993,9 +1134,9 @@ def phase_scripted(device) -> dict:
         device, lambda cfg: None)
     emit("scripted", t0, cases=N_CASES, max_steps=SUITE_STEPS, runs=runs,
          launches=launches)
-    if any(launches.values()):
-        fail(f"scripted: a kernel launched on a path that has none: "
-             f"{launches}")
+    if any(attention_counts(launches).values()):
+        fail(f"scripted: an attention kernel launched on a path that has "
+             f"none: {launches}")
     if not any(run["metrics"]["success_rate"] > 0 for run in runs.values()):
         fail(f"scripted: no case reached its goal in {SUITE_STEPS} steps")
     return launches
@@ -1080,8 +1221,10 @@ def phase_variants_train(device) -> dict:
          metrics=metrics, launches=launches,
          grad_cosine_kernel_vs_plain=cosine, grad_rel_err_kernel_vs_plain=rel,
          grad_worst_attn_leaf=worst)
-    if launches != expect:
+    if attention_counts(launches) != expect:
         fail(f"variants_train launches {launches}, expected {expect}")
+    check_orca_launches("variants_train", launches[ORCA], orca_solves(
+        cfg, "train", "network", p.num_steps, 0))
     if not all(math.isfinite(v) for v in metrics.values()):
         fail(f"variants_train: non-finite metric {metrics}")
     return launches
@@ -1139,8 +1282,10 @@ def phase_unicycle_train(gst, device) -> dict:
               "K3_packed_masked_attention": 0}
     metrics = {k: float(m[k]) for k in ("value_loss", "action_loss",
                                         "dist_entropy", "reward_mean")}
-    if launches != expect:
+    if attention_counts(launches) != expect:
         fail(f"unicycle_train launches {launches}, expected {expect}")
+    check_orca_launches("unicycle_train", launches[ORCA], orca_solves(
+        cfg, "train", "network", p.num_steps, 0))
     if not all(math.isfinite(v) for v in metrics.values()):
         fail(f"unicycle_train: non-finite metric {metrics}")
 
@@ -1246,12 +1391,16 @@ def phase_policy_variants(gst, device) -> dict:
                   n_updates if attends else 0,
                   "K3_packed_masked_attention": 0}
         k1_eval = eval_launches["K1_fused_graph_attention"]
-        if (train_launches != expect or (k1_eval > 0) != attends
+        if (attention_counts(train_launches) != expect
+                or (k1_eval > 0) != attends
                 or eval_launches["K2_fused_graph_attention_backward"]
                 or eval_launches["K3_packed_masked_attention"]):
             fail(f"policy_variants {name}: launches {eval_launches} in the "
                  f"suite and {train_launches} in the iteration, expected "
                  f"K1 {'> 0' if attends else '= 0'} and {expect}")
+        check_orca_launches(f"policy_variants {name} iteration",
+                            train_launches[ORCA], orca_solves(
+                                cfg, "train", "network", p.num_steps, 0))
         if not all(math.isfinite(v) for v in metrics.values()):
             fail(f"policy_variants {name}: non-finite metric {metrics}")
         if name == "sort_humans_false":
@@ -1415,8 +1564,9 @@ def phase_gst_train(cfg, device, smi) -> dict:
              f"{untrained['foe']}")
     if not pred_finite:
         fail("gst_train: the trained predictor gave a non-finite value")
-    if any(launches.values()):
-        fail(f"gst_train launched a kernel: {launches}")
+    if any(attention_counts(launches).values()) or not launches[ORCA]:
+        fail(f"gst_train: an attention kernel launched, or the ORCA robot's "
+             f"crowds launched no ORCA kernel: {launches}")
     return launches
 
 
@@ -1442,8 +1592,8 @@ def phase_edges(device) -> tuple:
     if not all(math.isfinite(v) and v > 0 for v in values):
         fail(f"edges: a rate or time is not finite and positive: {rates}, "
              f"{sweep}")
-    if launches != expect:
-        fail(f"edges launches {launches}, expected {expect}")
+    if launches != {**expect, ORCA: 0}:
+        fail(f"edges launches {launches}, expected {expect} and no ORCA")
     return launches, sweep
 
 
@@ -1476,8 +1626,10 @@ def phase_parallel(cfg, gst, device, plain_first) -> dict:
         expect = {"K1_fused_graph_attention": p.num_steps + 1 + n_updates,
                   "K2_fused_graph_attention_backward": n_updates,
                   "K3_packed_masked_attention": 0}
-        if launches != expect:
+        if attention_counts(launches) != expect:
             fail(f"parallel launches {launches}, expected {expect}")
+        check_orca_launches("parallel", launches[ORCA], orca_solves(
+            cfg, "train", "network", p.num_steps, 0))
         want, vl_plain = plain_first
         vl = float(m["value_loss"])
         if not (math.isfinite(vl)
@@ -1700,7 +1852,7 @@ def _off_gym(policy, pcfg, device) -> tuple:
         if not math.isfinite(r2) or term or trunc:
             break
     scripted_launches = {k: read_counts()[k] - v
-                         for k, v in zero_before.items()}
+                         for k, v in attention_counts(zero_before).items()}
     info = {"gst_steps": acts, "gst_rewards": rewards,
             "spatial_edges_shapes": sorted(shapes),
             "orca_steps": orca_steps, "orca_launches": scripted_launches}
@@ -1896,7 +2048,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     names = [masked_attention.KERNEL, masked_attention.KERNEL_BWD,
-             masked_attention.KERNEL_ATTN]
+             masked_attention.KERNEL_ATTN, orca.KERNEL]
     reports = _build.build(names)
     ptxas = {k: ptxas_summary(v) for k, v in reports.items()}
     emit("build", t0, kernels=names, ptxas=ptxas)
@@ -1955,6 +2107,8 @@ def main() -> int:
          k1_scattered=k1_scattered, k2_scattered=k2_scattered, k3=k3,
          k1_any_shape=k1_any, k2_any_shape=k2_any, k3_any_shape=k3_any,
          device_kernels=dev_kernels)
+
+    orca_shapes = phase_orca(device)
 
     cfg = config_from_snapshot(os.path.join(MODEL_DIR, "config.json"))
     gst = load_gst(cfg.pred, DEFAULT_GST_PARAMS, device)
@@ -2046,7 +2200,24 @@ def main() -> int:
         **per_call("K3_packed_masked_attention"),
         "ptxas": ptxas.get(masked_attention.KERNEL_ATTN, {}),
     }
-    print(json.dumps({"kernels": [k1_entry, k2_entry, k3_entry]}), flush=True)
+    orca_by_path = {p: path_launches[p][ORCA] for p in path_launches}
+    orca_entry = {
+        "name": ORCA, "route": "cuda",
+        "source": "crowdnav_prediction_attngraph_tpu_torch/ops/csrc/"
+                  "orca_solve.cu",
+        "replaces": None,
+        "launches": sum(orca_by_path.values()),
+        "launches_by_path": orca_by_path,
+        "shape": {"egos": SCENE_SHAPES[0][0], "lines": SCENE_SHAPES[0][1],
+                  "dtype": "f32"},
+        **{key: orca_shapes[0][key] for key in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "lp3_egos")},
+        "by_shape": orca_shapes,
+        "ptxas": ptxas.get(orca.KERNEL, {}),
+    }
+    print(json.dumps({"kernels": [k1_entry, k2_entry, k3_entry,
+                                  orca_entry]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -21,13 +21,23 @@ The remaining loops run over the ~21 line slots, each step a few whole-batch
 tensor ops. LP3 stays bounded at the outer line index (PARITY.md, deviation
 11) and, as in ``orca_velocity_batch`` (JAX ``orca.py:269-301``), runs only
 for the egos whose LP2 failed.
+
+That is the plain version, :func:`reference_orca_velocity_batch`, which
+:func:`orca_velocity_batch` runs for CPU tensors. For CUDA tensors it
+launches one hand-written kernel (``ops/csrc/orca_solve.cu``) that solves
+each ego's lines, LP2 and LP3 in a warp, with the same arithmetic bit for
+bit and no host read.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops import _build
+from ..utils import profiling
 from ..utils.profiling import count, span
+
+KERNEL = "orca_solve"
 
 _EPS = 1e-5      # RVO_EPSILON
 _SAFE = 1e-9     # guard against 0/0 in degenerate (coincident-agent) states
@@ -208,10 +218,67 @@ def orca_velocity_batch(ego_pos, ego_vel, ego_radius, ego_max_speed,
                         time_step: float, time_horizon: float, neighbor_dist):
     """New ORCA velocities (E, 2) for E egos (JAX ``orca_velocity_batch``).
 
-    Radii must already include RVO2's +0.01 margin and the safety space;
-    ``pref_vel`` is the unit-clipped preferred velocity. LP3 runs only on the
-    egos whose LP2 failed (one host sync to find them)."""
+    ego_*: (E, 2) / (E,); pref_vel (E, 2); nbr_*: (E, N, 2) / (E, N), the
+    mask bool; neighbor_dist (E,); float32 or float64. Radii must already
+    include RVO2's +0.01 margin and the safety space; ``pref_vel`` is the
+    unit-clipped preferred velocity. CUDA tensors launch the kernel
+    (``ops/csrc/orca_solve.cu``: one launch, no host read; the egos whose
+    LP2 failed are counted on the device as ``orca.lp3_egos``); CPU tensors
+    run :func:`reference_orca_velocity_batch`."""
     count("orca.egos", ego_pos.shape[0])
+    if ego_pos.device.type != "cuda":
+        return reference_orca_velocity_batch(
+            ego_pos, ego_vel, ego_radius, ego_max_speed, pref_vel, nbr_pos,
+            nbr_vel, nbr_radius, nbr_mask, time_step, time_horizon,
+            neighbor_dist)
+    with span("orca.solve"):
+        return _launch(ego_pos, ego_vel, ego_radius, ego_max_speed, pref_vel,
+                       nbr_pos, nbr_vel, nbr_radius, nbr_mask, neighbor_dist,
+                       time_step=time_step, time_horizon=time_horizon)
+
+
+orca_velocity_batch.launches = 0
+
+
+def _launch(*args, time_step, time_horizon):
+    """One launch of the kernel on ``args``, orca_velocity_batch's tensors
+    in its order; checks what the kernel takes first."""
+    E, N = args[8].shape
+    dtype, device = args[0].dtype, args[0].device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"ORCA takes float32 or float64, got {dtype}")
+    shapes = ((E, 2), (E, 2), (E,), (E,), (E, 2), (E, N, 2), (E, N, 2),
+              (E, N), (E, N), (E,))
+    for i, (t, shape) in enumerate(zip(args, shapes)):
+        want = torch.bool if i == 8 else dtype
+        if t.dtype != want:
+            raise TypeError(f"argument {i} is {t.dtype}, not {want}")
+        if t.shape != shape or t.device != device:
+            raise ValueError(f"argument {i} must be {shape} on {device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    args = [t.contiguous() for t in args]
+    out = torch.empty(E, 2, dtype=dtype, device=device)
+    lp3_egos = profiling.device_counter("orca.lp3_egos", device)
+    fn = _build.kernel_fn(KERNEL, "orca_solve", [_build.P] * 12
+                          + [_build.I] * 2 + [_build.D] * 2 + [_build.I])
+    with _build.on_device(device):
+        rc = fn(*_build.ptrs(*args, out, lp3_egos),
+                E, N, 1.0 / time_horizon, 1.0 / time_step,
+                int(dtype == torch.float64),
+                torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"orca_solve kernel launch failed: cudaError {rc}")
+    orca_velocity_batch.launches += 1
+    return out
+
+
+def reference_orca_velocity_batch(ego_pos, ego_vel, ego_radius,
+                                  ego_max_speed, pref_vel, nbr_pos, nbr_vel,
+                                  nbr_radius, nbr_mask, time_step: float,
+                                  time_horizon: float, neighbor_dist):
+    """The plain version of :func:`orca_velocity_batch`, on any device: the
+    stages as whole-batch tensor ops, LP3 only on the egos whose LP2 failed
+    (one host read to find them)."""
     with span("orca.lines"):
         d, p, valid = orca_lines(ego_pos, ego_vel, ego_radius, nbr_pos,
                                  nbr_vel, nbr_radius, nbr_mask, time_step,

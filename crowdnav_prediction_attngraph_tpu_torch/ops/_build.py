@@ -8,17 +8,21 @@ shared library lands in ``<repo>/.torch_build/`` (listed in ``.gitignore``)
 under a name that carries the hash of its source, the shared headers of
 ``csrc/`` (``*.cuh``) and the flags, so a changed source is rebuilt and an
 unchanged one is reused. Nothing is built when a module is imported: the
-first call that needs a kernel builds it.
+first call that needs a kernel builds it. :func:`kernel_fn`, :func:`ptrs` and
+:func:`on_device` bind and call a library's C entries.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -95,3 +99,35 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(_target(name))
         _loaded[name] = lib
     return lib
+
+
+# the C entries' argument types: pointers (and the stream) as c_void_p, so
+# ctypes does not cut them to 32 bits
+P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+
+_fns = {}
+
+
+def kernel_fn(name: str, symbol: str, argtypes):
+    """The C entry ``symbol`` of ``csrc/<name>.cu`` with the given argument
+    types, the stream appended, returning an int (a cudaError)."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes) + [P]
+        fn.restype = ctypes.c_int
+        _fns[symbol] = fn
+    return fn
+
+
+def ptrs(*tensors):
+    """Data pointers for a C entry; None (an unused scratch) passes NULL."""
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def on_device(device):
+    """The kernels launch on the current device: a context that makes
+    ``device`` current, or nothing when it already is."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

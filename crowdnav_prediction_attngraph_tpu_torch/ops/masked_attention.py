@@ -42,8 +42,6 @@ send one (the policy's mask keeps detected >= 1).
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
 import functools
 import math
 
@@ -299,11 +297,11 @@ def _launch_forward(x, mask, w_qkv, b_qkv, w_out, b_out, num_heads,
     buf, ptrs = _scratch(x.device, *copies, (tokens * 3 * D, cd),
                          (tokens * D, cd))
     scale, _ = _scales(D, num_heads, compute_dtype)
-    fn = _kernel_fn(KERNEL, "fused_graph_attention_forward",
-                    [_P] * 12 + [_I] * 6 + [_F])
-    with _on_device(x.device):
-        rc = fn(*_ptrs(x, mask, w_qkv, b_qkv, w_out, b_out, out), *ptrs,
-                rows, A, D, num_heads, int(bf16), w_out_t, scale,
+    fn = _build.kernel_fn(KERNEL, "fused_graph_attention_forward",
+                          [_build.P] * 12 + [_build.I] * 6 + [_build.F])
+    with _build.on_device(x.device):
+        rc = fn(*_build.ptrs(x, mask, w_qkv, b_qkv, w_out, b_out, out),
+                *ptrs, rows, A, D, num_heads, int(bf16), w_out_t, scale,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_graph_attention kernel launch failed: "
@@ -350,11 +348,11 @@ def fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
         (tokens * D, cd), (_BIAS_SLICES * 4 * D, fl),
         (tokens * num_heads * 3, fl))
     scale, scale_c = _scales(D, num_heads, compute_dtype)
-    fn = _kernel_fn(KERNEL_BWD, "fused_graph_attention_backward",
-                    [_P] * 22 + [_I] * 6 + [_F, _F])
-    with _on_device(x.device):
-        rc = fn(*_ptrs(x, mask, g, w_qkv, b_qkv, w_out, dx, dw_qkv, db_qkv,
-                       dw_out, db_out), *ptrs,
+    fn = _build.kernel_fn(KERNEL_BWD, "fused_graph_attention_backward",
+                          [_build.P] * 22 + [_build.I] * 6 + [_build.F] * 2)
+    with _build.on_device(x.device):
+        rc = fn(*_build.ptrs(x, mask, g, w_qkv, b_qkv, w_out, dx, dw_qkv,
+                             db_qkv, dw_out, db_out), *ptrs,
                 rows, A, D, num_heads, int(bf16), w_out_t, scale, scale_c,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
@@ -404,10 +402,10 @@ def packed_masked_attention(q, k, v, mask, num_heads: int):
     _check_kernel(q, {"q": q, "k": k, "v": v, "mask": mask})
     rows, A, D = q.shape
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    fn = _kernel_fn(KERNEL_ATTN, "packed_masked_attention_forward",
-                    [_P] * 5 + [_I] * 5)
-    with _on_device(q.device):
-        rc = fn(*_ptrs(q, k, v, mask, out), rows, A, D, num_heads,
+    fn = _build.kernel_fn(KERNEL_ATTN, "packed_masked_attention_forward",
+                          [_build.P] * 5 + [_build.I] * 5)
+    with _build.on_device(q.device):
+        rc = fn(*_build.ptrs(q, k, v, mask, out), rows, A, D, num_heads,
                 int(q.dtype == torch.bfloat16),
                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
@@ -418,35 +416,3 @@ def packed_masked_attention(q, k, v, mask, num_heads: int):
 
 
 packed_masked_attention.launches = 0
-
-
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def _ptrs(*tensors):
-    """Data pointers for a C entry; None (an unused scratch) passes NULL."""
-    return [None if t is None else t.data_ptr() for t in tensors]
-
-
-def _on_device(device):
-    """The kernels launch on the current device: a context that makes
-    ``device`` current, or nothing when it already is."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
-_fns = {}
-
-
-def _kernel_fn(name: str, symbol: str, argtypes):
-    """The C entry ``symbol`` of ``csrc/<name>.cu`` with the given argument
-    types, the stream appended (pointers as c_void_p, so ctypes does not cut
-    them to 32 bits)."""
-    fn = _fns.get(symbol)
-    if fn is None:
-        fn = getattr(_build.load(name), symbol)
-        fn.argtypes = list(argtypes) + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns[symbol] = fn
-    return fn

@@ -6,11 +6,19 @@ A straightforward, loop-based float64 implementation of the RVO2 algorithm
 package is not installed (the reference repo relied on the external C++
 ``rvo2`` binding, reference crowd_nav/policy/orca.py:64-117). The
 neighbours are unmasked: pass only the present ones.
+
+It also holds the seeded scenes that the ORCA kernel is checked on against
+the batched plain solve (``random_scene``, ``scene_tensors``,
+``SCENE_SHAPES``, ``plain_solve``, ``lp2_failures``), shared by the card
+tests and ``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..env.orca import _lp2, orca_lines, reference_orca_velocity_batch
 
 EPS = 1e-5
 
@@ -146,3 +154,97 @@ def orca_velocity_np(ego_pos, ego_vel, ego_radius, ego_max_speed, pref_vel,
     if fail < len(lines):
         result = lp3(lines, fail, ego_max_speed, result)
     return result
+
+
+SCENE_KINDS = ("crowd", "coincident", "masked", "far", "parallel")
+# the checks' shapes (egos, lines): the humans' solve of the flagship (64
+# envs x 20 humans, 21 lines with the robot) and of config 5 (256 x 50, 51),
+# and the scripted ORCA robot's truth rollout ((K + 1) x A lines: 64 envs x
+# 120, 500 cases x 300); the scenes' time step and horizon
+SCENE_SHAPES = ((1280, 21), (12800, 51), (64, 120), (500, 300))
+SCENE_TIME_STEP, SCENE_TIME_HORIZON = 0.25, 5.0
+# the plain solve's elements per chunk of egos: its LP3 builds (egos, n, n,
+# n) tensors, 74 egos at a time at n = 300
+PLAIN_CHUNK_ELEMENTS = 2e9
+
+
+def random_scene(egos: int, n: int, seed: int, kind: str = "crowd"):
+    """Seeded ORCA inputs for the checks of the batched solve: ``[ego_pos,
+    ego_vel, ego_radius, ego_max_speed, pref_vel, nbr_pos, nbr_vel,
+    nbr_radius, nbr_mask, neighbor_dist]`` as NumPy arrays (float64, the
+    mask bool), in the order of ``env/orca.py``'s ``orca_velocity_batch``.
+
+    ``crowd``: each ego's n neighbours scattered around it (standard
+    deviation 1.1 sqrt(n) m, so that a fifth to a quarter of the egos fail
+    LP2 and run LP3), 85% of the slots present, radii with the +0.01 margin,
+    neighbor_dist 5-10 m. On top of that, ``coincident``: every other
+    neighbour on its ego, every fourth with its velocity too, and every
+    other ego, with its neighbours, at rest at the origin; ``masked``: no
+    neighbour present; ``far``: neighbor_dist 0.5 m, so nearly all are out
+    of reach; ``parallel``: every slot present, the second half of the
+    neighbours mirrored through the ego (positions and relative velocities)
+    and the last a copy of the first, so lines come in antiparallel and
+    parallel pairs."""
+    if kind not in SCENE_KINDS:
+        raise ValueError(f"kind must be one of {SCENE_KINDS}, got {kind!r}")
+    g = np.random.default_rng(seed)
+    ego_pos = g.uniform(-4.0, 4.0, (egos, 2))
+    ego_vel = g.normal(0.0, 0.5, (egos, 2))
+    ego_radius = 0.31 + g.uniform(0.0, 0.15, egos)
+    ego_max_speed = g.uniform(0.5, 1.5, egos)
+    pref = g.normal(0.0, 1.0, (egos, 2))
+    speed = np.linalg.norm(pref, axis=-1, keepdims=True)
+    pref_vel = np.where(speed > 1.0, pref / speed, pref)
+    nbr_pos = ego_pos[:, None] + g.normal(0.0, 1.1 * np.sqrt(n), (egos, n, 2))
+    nbr_vel = g.normal(0.0, 0.5, (egos, n, 2))
+    nbr_radius = 0.31 + g.uniform(0.0, 0.15, (egos, n))
+    nbr_mask = g.random((egos, n)) < 0.85
+    neighbor_dist = g.uniform(5.0, 10.0, egos)
+    if kind == "coincident":
+        nbr_pos[:, ::2] = ego_pos[:, None]
+        nbr_vel[:, ::4] = ego_vel[:, None]
+        for a in (ego_pos, ego_vel, nbr_pos, nbr_vel):
+            a[1::2] = 0.0
+    elif kind == "masked":
+        nbr_mask[:] = False
+    elif kind == "far":
+        neighbor_dist[:] = 0.5
+    elif kind == "parallel":
+        half = n // 2
+        nbr_pos[:, half:2 * half] = 2 * ego_pos[:, None] - nbr_pos[:, :half]
+        nbr_vel[:, half:2 * half] = 2 * ego_vel[:, None] - nbr_vel[:, :half]
+        nbr_radius[:, half:2 * half] = nbr_radius[:, :half]
+        for a in (nbr_pos, nbr_vel, nbr_radius):
+            a[:, -1] = a[:, 0]
+        nbr_mask[:] = True
+    return [ego_pos, ego_vel, ego_radius, ego_max_speed, pref_vel, nbr_pos,
+            nbr_vel, nbr_radius, nbr_mask, neighbor_dist]
+
+
+def scene_tensors(egos: int, n: int, seed: int, device,
+                  dtype=torch.float32, kind: str = "crowd") -> list:
+    """:func:`random_scene` as tensors on ``device``: the floats in
+    ``dtype``, the mask bool."""
+    return [torch.from_numpy(a).to(device) if a.dtype == bool
+            else torch.from_numpy(a).to(device, dtype)
+            for a in random_scene(egos, n, seed, kind)]
+
+
+def plain_solve(args) -> torch.Tensor:
+    """``reference_orca_velocity_batch`` on a scene's tensors, some egos at
+    a time (``PLAIN_CHUNK_ELEMENTS``): each ego is solved on its own, so the
+    chunks give the bits of one call."""
+    egos, n = args[8].shape
+    chunk = max(16, int(PLAIN_CHUNK_ELEMENTS // n ** 3))
+    return torch.cat([reference_orca_velocity_batch(
+        *(t[i:i + chunk] for t in args[:9]), SCENE_TIME_STEP,
+        SCENE_TIME_HORIZON, args[9][i:i + chunk])
+        for i in range(0, egos, chunk)])
+
+
+def lp2_failures(args) -> int:
+    """The egos of a scene whose plain LP2 fails: those that run LP3."""
+    d, p, valid = orca_lines(*args[:3], *args[5:9], SCENE_TIME_STEP,
+                             SCENE_TIME_HORIZON, args[9])
+    _, fail = _lp2(d, p, valid, args[3], args[4], False)
+    return int((fail < d.shape[1]).sum())

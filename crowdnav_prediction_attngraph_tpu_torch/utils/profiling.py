@@ -15,7 +15,9 @@ reference only logs wall-clock FPS, train.py:222-232).
   :func:`snapshot` returns the raw spans, per-name count, total and self
   time (the duration less the part its child spans cover) and the
   counters, with the kernels' launch counts since the last :func:`reset`
-  as ``k1.launches``, ``k2.launches`` and ``k3.launches``; :func:`readings`
+  as ``k1.launches``, ``k2.launches``, ``k3.launches`` and
+  ``orca.launches``; a kernel adds to a counter on the device through
+  :func:`device_counter`, which only :func:`snapshot` reads; :func:`readings`
   puts a snapshot per env step, and :func:`per_step_table` prints it.
 - One clock: a Chrome trace that ``torch.profiler`` exports gives each
   event's ``ts`` in microseconds of the same Unix clock, less the trace's
@@ -42,10 +44,13 @@ from typing import Dict, List
 import torch
 
 RANGE_PREFIX = "crowdnav."
-# the kernels' entry functions and the names their launch counts take
-_KERNELS = (("k1.launches", "fused_graph_attention"),
-            ("k2.launches", "fused_graph_attention_backward"),
-            ("k3.launches", "packed_masked_attention"))
+# the names the kernels' launch counts take, and their entry functions
+# (module of the port, function)
+_KERNELS = (("k1.launches", "ops.masked_attention", "fused_graph_attention"),
+            ("k2.launches", "ops.masked_attention",
+             "fused_graph_attention_backward"),
+            ("k3.launches", "ops.masked_attention", "packed_masked_attention"),
+            ("orca.launches", "env.orca", "orca_velocity_batch"))
 
 
 class Registry:
@@ -127,13 +132,12 @@ class _Span:
 
 
 def _launch_counts() -> Dict[str, int]:
-    """The kernels' ``.launches`` counters as they stand (0 before the ops
+    """The kernels' ``.launches`` counters as they stand (0 before their
     module is loaded)."""
-    mod = sys.modules.get(__name__.rsplit(".", 2)[0] + ".ops.masked_attention")
-    if mod is None:
-        return {key: 0 for key, _ in _KERNELS}
-    return {key: int(getattr(getattr(mod, fn), "launches", 0))
-            for key, fn in _KERNELS}
+    package = __name__.rsplit(".", 2)[0]
+    return {key: int(getattr(getattr(sys.modules.get(f"{package}.{module}"),
+                                     fn, None), "launches", 0))
+            for key, module, fn in _KERNELS}
 
 
 # --- the port's registry -----------------------------------------------------
@@ -141,6 +145,8 @@ def _launch_counts() -> Dict[str, int]:
 _ON = False
 _NULL = contextlib.nullcontext()
 _REGISTRY = Registry()
+# {(counter name, device): int32 tensor on the device}
+_DEVICE_COUNTERS: Dict[tuple, torch.Tensor] = {}
 
 
 def enable():
@@ -154,15 +160,36 @@ def disable():
 
 
 def reset():
-    """Forget the closed spans and the counters; launch counts start again
-    from here."""
+    """Forget the closed spans and the counters (the device counters are
+    set to 0 on the device); launch counts start again from here."""
     _REGISTRY.reset()
+    for t in _DEVICE_COUNTERS.values():
+        t.zero_()
 
 
 def snapshot() -> dict:
     """``{"spans": [...], "totals": {...}, "counters": {...}}`` of the port's
-    registry (see :meth:`Registry.snapshot`)."""
-    return _REGISTRY.snapshot()
+    registry (see :meth:`Registry.snapshot`), each device counter added to
+    the counter of its name (one blocking read of each)."""
+    snap = _REGISTRY.snapshot()
+    counters = snap["counters"]
+    for (name, _), t in _DEVICE_COUNTERS.items():
+        counters[name] = counters.get(name, 0) + int(t.item())
+    return snap
+
+
+def device_counter(name: str, device):
+    """While tracing is on, the int32 scalar on ``device`` that a kernel adds
+    counter ``name`` into, without a host read (0 when first made, and after
+    each :func:`reset`); None while tracing is off."""
+    if not _ON:
+        return None
+    key = (name, torch.device(device))
+    t = _DEVICE_COUNTERS.get(key)
+    if t is None:
+        t = _DEVICE_COUNTERS[key] = torch.zeros((), dtype=torch.int32,
+                                                device=device)
+    return t
 
 
 def span(name: str):

@@ -46,6 +46,18 @@ softmax), at head dims 48, 65 (the plain-load path, in f32 and bf16), 12
 (bf16 plain loads), 128 and 256, and past 256, where it splits the head
 into column chunks of 256: 257 (plain loads), 320 (f32 and bf16) and 512,
 also over several key tiles and with an all-masked row.
+
+The ORCA solve (``env/orca.py``'s ``orca_velocity_batch``, one launch of
+``csrc/orca_solve.cu``) is held to its plain version on the card bit for
+bit (``torch.equal``), in float32 and float64: at the paths' shapes (1,280
+egos x 21 lines and 12,800 x 51 for the humans of the flagship and config
+5, 64 x 120 and 500 x 300 for the scripted ORCA robot's truth rollout) in
+crowds where a fifth to a quarter of the egos fail LP2 and run LP3, and in
+degenerate scenes (coincident agents, every neighbour masked or out of
+neighbor_dist, N = 1, parallel and antiparallel lines). Two runs give the
+same bits; ``.launches`` rises by one a call; a call makes no host sync
+(``torch.cuda.set_sync_debug_mode("error")``), with the spans off and on;
+``orca.lp3_egos`` equals the number of egos whose plain LP2 failed.
 """
 
 import math
@@ -54,10 +66,16 @@ import numpy as np
 import pytest
 import torch
 
+from crowdnav_prediction_attngraph_tpu_torch.env.orca import (
+    orca_velocity_batch)
 from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
     fused_graph_attention, fused_graph_attention_backward,
     packed_masked_attention, reference_fused_graph_attention,
     reference_fused_graph_attention_backward, reference_masked_attention)
+from crowdnav_prediction_attngraph_tpu_torch.utils import profiling
+from crowdnav_prediction_attngraph_tpu_torch.utils.orca_oracle import (
+    SCENE_SHAPES, SCENE_TIME_HORIZON, SCENE_TIME_STEP, lp2_failures,
+    plain_solve, scene_tensors)
 
 A, D, HEADS = 20, 512, 8
 
@@ -468,3 +486,81 @@ def test_gst_collect_and_train_step_on_the_card(cuda_device):
         losses.append(loss.item())
     assert math.isfinite(losses[0])
     assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[1])
+
+
+# ------------------------------------------------------------------- ORCA
+
+def orca_kernel(args):
+    return orca_velocity_batch(*args[:9], SCENE_TIME_STEP, SCENE_TIME_HORIZON,
+                               args[9])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("egos,n", SCENE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_orca_matches_plain_bitwise(cuda_device, egos, n, dtype):
+    args = scene_tensors(egos, n, 7, cuda_device, dtype)
+    failed = lp2_failures(args)
+    assert 0.15 * egos <= failed <= 0.4 * egos
+    profiling.enable()
+    profiling.reset()
+    try:
+        got = orca_kernel(args)
+        counted = profiling.snapshot()["counters"]["orca.lp3_egos"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert counted == failed
+    assert torch.equal(got, plain_solve(args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["coincident", "masked", "far", "parallel"])
+@pytest.mark.parametrize("n", [1, 21])
+def test_orca_matches_plain_degenerate(cuda_device, kind, n):
+    args = scene_tensors(256, n, 3, cuda_device, kind=kind)
+    got = orca_kernel(args)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, plain_solve(args))
+
+
+@pytest.mark.cuda
+def test_orca_repeats_its_bits_and_counts_launches(cuda_device):
+    args = scene_tensors(1280, 21, 11, cuda_device)
+    before = orca_velocity_batch.launches
+    first, second = orca_kernel(args), orca_kernel(args)
+    assert orca_velocity_batch.launches == before + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spans", [False, True], ids=["off", "on"])
+def test_orca_makes_no_host_sync(cuda_device, spans):
+    args = scene_tensors(12800, 51, 5, cuda_device)
+    orca_kernel(args)           # builds and loads the library
+    torch.cuda.synchronize()
+    if spans:
+        profiling.enable()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = orca_kernel(args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        profiling.disable()
+        profiling.reset()
+    assert out.shape == (12800, 2)
+
+
+@pytest.mark.cuda
+def test_orca_rejects_what_it_does_not_take(cuda_device):
+    args = scene_tensors(8, 5, 0, cuda_device)
+    mixed = list(args)
+    mixed[2] = mixed[2].double()
+    with pytest.raises(TypeError):
+        orca_kernel(mixed)
+    with pytest.raises(TypeError):
+        orca_kernel([t.half() if t.is_floating_point() else t for t in args])
+    with pytest.raises(TypeError):
+        orca_kernel(args[:8] + [args[8].int(), args[9]])
+    with pytest.raises(ValueError):
+        orca_kernel(args[:9] + [args[9][:4]])

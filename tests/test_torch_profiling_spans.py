@@ -17,10 +17,13 @@ the snapshot; ``train --spans`` and ``test --spans`` print the table;
 ``tools/profile_spans.py`` reads a synthetic trace as it should and gives
 its readings at a tiny size (with no device ops on the CPU).
 
+On the CPU, ``orca_velocity_batch`` runs its plain stages (their spans,
+LP3's host read) and never loads the ORCA kernel's library.
+
 On the card (marked ``cuda``, skipped here): a flagship env step, and one
 in which every env resets, under ``torch.cuda.set_sync_debug_mode("warn")``
 raise exactly as many synchronising-op warnings as the ``sync.*`` counters
-add. This file imports no jax:
+add, none of them ORCA's. This file imports no jax:
 
   python -m pytest --noconftest tests/test_torch_profiling_spans.py -q -m cuda
 """
@@ -40,11 +43,14 @@ from crowdnav_prediction_attngraph_tpu_torch import test as test_cli
 from crowdnav_prediction_attngraph_tpu_torch import train as train_cli
 from crowdnav_prediction_attngraph_tpu_torch.algo import ppo
 from crowdnav_prediction_attngraph_tpu_torch.config import config_from_snapshot
-from crowdnav_prediction_attngraph_tpu_torch.env import vector
+from crowdnav_prediction_attngraph_tpu_torch.env import orca, vector
 from crowdnav_prediction_attngraph_tpu_torch.models import policy as pmod
 from crowdnav_prediction_attngraph_tpu_torch.models.gst.predictor import load_gst
-from crowdnav_prediction_attngraph_tpu_torch.ops import masked_attention
+from crowdnav_prediction_attngraph_tpu_torch.ops import (
+    _build, masked_attention)
 from crowdnav_prediction_attngraph_tpu_torch.utils import profiling
+from crowdnav_prediction_attngraph_tpu_torch.utils.orca_oracle import (
+    scene_tensors)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the flagship recipe: the r5 run's snapshot
@@ -141,7 +147,7 @@ def test_off_leaves_registry_empty(flagship):
     snap = profiling.snapshot()
     assert snap["spans"] == [] and snap["totals"] == {}
     assert snap["counters"] == {"k1.launches": 0, "k2.launches": 0,
-                                "k3.launches": 0}
+                                "k3.launches": 0, "orca.launches": 0}
 
 
 def test_disabled_span_costs_a_flag_test():
@@ -338,6 +344,33 @@ def test_sync_counters_once_per_hit(which, timeout, flagship, monkeypatch):
     assert sum(expected.values()) == sum(calls.values()), dict(calls)
 
 
+@pytest.mark.parametrize("egos,n", [(40, 21), (30, 51)])
+def test_orca_on_cpu_never_loads_the_kernel(egos, n, monkeypatch):
+    """CPU tensors take the plain stages: the same bits as ``orca_lines``,
+    ``_lp2`` and ``_lp3`` run by hand, LP3's host read counted, and the
+    kernel's library never built or loaded."""
+    def refuse(name):
+        raise AssertionError(f"loaded {name} for CPU tensors")
+    monkeypatch.setattr(_build, "load", refuse)
+    args = scene_tensors(egos, n, 5, "cpu")
+    launches = orca.orca_velocity_batch.launches
+    profiling.enable()
+    got = orca.orca_velocity_batch(*args[:9], 0.25, 5.0, args[9])
+    profiling.disable()
+    d, p, valid = orca.orca_lines(*args[:3], *args[5:9], 0.25, 5.0, args[9])
+    result, fail = orca._lp2(d, p, valid, args[3], args[4], False)
+    lp3 = orca._lp3(d, p, valid, fail, args[3], result)
+    failed = fail < n
+    assert failed.any()
+    assert torch.equal(got, torch.where(failed[:, None], lp3, result))
+    c = profiling.snapshot()["counters"]
+    assert c["sync.orca_lp3"] == 1 and c["orca.egos"] == egos
+    assert c["orca.lp3_egos"] == int(failed.sum())
+    assert orca.orca_velocity_batch.launches == launches
+    assert {s["name"] for s in profiling.snapshot()["spans"]} == {
+        "orca.lines", "orca.lp2", "orca.lp3"}
+
+
 # ------------------------------------------------------------ bit-equality
 
 def _flat(x):
@@ -448,6 +481,7 @@ def test_sync_counters_match_sync_debug_warnings():
         torch.full_like(states.global_time, cfg.env.time_limit)))
     vector.vec_step(cfg, _fork(states), action, "train", gst)
     torch.cuda.synchronize()
+    profiling.reset()
     profiling.enable()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -466,6 +500,8 @@ def test_sync_counters_match_sync_debug_warnings():
                                 for w in syncs)
     assert len(syncs) == counted, (dict(sites), c)
     assert c["vec.resets"] == cfg.ppo.num_processes and c["env.steps"] == 2
+    # the ORCA kernel finds its LP3 egos on the device
+    assert c.get("sync.orca_lp3", 0) == 0 and c["orca.launches"] == 2
 
 
 # ------------------------------------------------ tools/profile_spans.py
