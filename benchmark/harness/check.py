@@ -13,8 +13,9 @@ each env's generator state, and the action taken), and checks the start
   every float of the next state and observation (m, m/s), and of the
   reward, whose GST penalty is recomputed from the program's own
   predictions (a prediction moved by rounding may cross the collision
-  radius; ``gst`` holds the predictions); plus one for every differing
-  discrete value (done, outcome, human count, masks).
+  radius; ``gst`` holds the predictions; where no GST runs, the reward
+  as the env gave it); plus one for every differing discrete value (done,
+  outcome, human count, masks).
 - ``gst``: the GST pretext. The root mean square gap of the predicted
   robot-frame positions (m), taken for each env over its predictions in
   the checked steps, and the largest over the envs, so that a fault in one
@@ -22,7 +23,8 @@ each env's generator state, and the action taken), and checks the start
   from seed to seed by the recursive decoder's amplification, and came
   within 2-3x of the control's.) ``gst_pooled``: the same gaps' root
   mean square over every prediction of every env, for a cell whose widest
-  env comes within 3x of the control's.
+  env comes within 3x of the control's. Neither is given where the
+  configuration runs no GST (``predict_method`` other than ``inferred``).
 - ``act``: the policy. The root mean square gap of the value, of the
   recurrent state and of the log-probability of the action taken (sampled
   acts) or of the action (deterministic acts), each taken for each env
@@ -84,7 +86,7 @@ class Records:
     seed: int
     policy_state: Optional[dict]     # seeded weights handed to both sides
     policy_path: Optional[str]       # or the committed weights both read
-    gst_path: str
+    gst_path: Optional[str]          # None where the configuration runs no GST
     start: Optional[dict] = None     # the program's first state and obs
     start_seeds: Optional[list] = None   # the first reset's generator seeds
     steps: List[dict] = dataclasses.field(default_factory=list)
@@ -154,7 +156,11 @@ def _step(cfg, gst, rec_step: dict, vec: bool, fault: Optional[str]):
                 cfg, [st.gens[i] for i in idx.tolist()], action.device)
             st = rtypes.tree_scatter(idx, fresh_s, st)
             obs = rtypes.tree_scatter(idx, fresh_o, obs)
-    st2, obs2, rew2, _, mask = rpretext.pretext_parts(cfg, gst, st, obs, rew)
+    if gst is not None:
+        st2, obs2, rew2, _, mask = rpretext.pretext_parts(cfg, gst, st, obs,
+                                                          rew)
+    else:
+        st2, obs2, rew2, mask = st, obs, rew, None
     if fault == "answer_altered":
         rew2 = rew2 + 1.0
     return {"state_out": _stored(snap(st2)), "obs_out": _stored(snap(obs2)),
@@ -271,16 +277,11 @@ def _accounting(cfg, suite: dict, fault: Optional[str]) -> dict:
 
 
 def _start(cfg, gst, rec: Records, device):
-    """The first reset, from the seeds of its generators: through
-    ``vec_reset_with_pretext`` for a train rollout, else a reset and the
-    pretext pass, as the suite and the gym adapter do."""
+    """The first reset, from the seeds of its generators, and the pretext
+    pass where the GST runs (``vec_reset_with_pretext``: the train rollout,
+    the suite and the gym adapter all start so)."""
     gens = [_seeded(s) for s in rec.start_seeds]
-    if rec.kind == "train":
-        st, obs = rvector.vec_reset_with_pretext(cfg, gens, gst, device)
-    else:
-        st, obs = rsim.reset(cfg, gens, device)
-        zero = torch.zeros(len(gens), device=device)
-        st, obs, _, _ = rpretext.pretext_process(cfg, gst, st, obs, zero)
+    st, obs = rvector.vec_reset_with_pretext(cfg, gens, gst, device)
     return {"state": _stored(snap(st)), "obs": _stored(snap(obs))}
 
 
@@ -303,7 +304,8 @@ def reference_outputs(rec: Records, device, mode: str = "ref",
     with ``fault`` planted (:data:`FAULTS`) when given."""
     with precision.mode(mode):
         cfg = ref_config(rec)
-        gst = rpred.load_gst(cfg.pred, rec.gst_path, device)
+        gst = (rpred.load_gst(cfg.pred, rec.gst_path, device)
+               if rec.gst_path is not None else None)
         model = rpolicy.PolicyHead(cfg).to(device)
         if rec.policy_path is not None:
             model.load_state_dict(tree_to_state_dict(
@@ -383,19 +385,26 @@ def _env_number(cfg, prog: dict, ref: dict, r_step: dict) -> float:
     g, n = _gap(prog["state_out"], r_step["state_out"])
     po, ro = prog["obs_out"], r_step["obs_out"]
     mask = r_step["mask"]
-    for k in ("robot_node", "temporal_edges", "visible_masks",
-              "detected_human_num"):
-        gk, nk = _gap(po[k], ro[k])
-        g, n = max(g, gk), n + nk
-    pe, re_ = po["spatial_edges"], ro["spatial_edges"]
-    g = max(g, float((pe[..., :2] - re_[..., :2]).abs().max()))
-    rest = (pe[..., 2:] - re_[..., 2:]).abs().amax(-1)
-    if bool((~mask).any()):
-        g = max(g, float(rest[~mask].max()))
-    A, K = mask.shape[1], cfg.sim.predict_steps
-    rel = pe[..., 2:].reshape(pe.shape[0], A, K, 2)
-    pen = rpretext.penalty_of(cfg, rel, mask)
-    g = max(g, float((prog["rew"] - (r_step["rew_env"] + pen)).abs().max()))
+    if mask is None:
+        # no GST: every float of the observation, and the env's reward
+        gk, nk = _gap(po, ro)
+        g = max(g, gk, float((prog["rew"] - r_step["rew"]).abs().max()))
+        n += nk
+    else:
+        for k in ("robot_node", "temporal_edges", "visible_masks",
+                  "detected_human_num"):
+            gk, nk = _gap(po[k], ro[k])
+            g, n = max(g, gk), n + nk
+        pe, re_ = po["spatial_edges"], ro["spatial_edges"]
+        g = max(g, float((pe[..., :2] - re_[..., :2]).abs().max()))
+        rest = (pe[..., 2:] - re_[..., 2:]).abs().amax(-1)
+        if bool((~mask).any()):
+            g = max(g, float(rest[~mask].max()))
+        A, K = mask.shape[1], cfg.sim.predict_steps
+        rel = pe[..., 2:].reshape(pe.shape[0], A, K, 2)
+        pen = rpretext.penalty_of(cfg, rel, mask)
+        g = max(g, float((prog["rew"] - (r_step["rew_env"] + pen))
+                         .abs().max()))
     n += int((prog["done"] != r_step["done"]).sum())
     n += int((prog["outcome"] != r_step["outcome"]).sum())
     return g + n
@@ -481,15 +490,18 @@ def numbers(kind: str, cfg, prog: dict, ref: dict, rec: Records,
     """The cell's compared numbers for ``prog`` (the program's outputs, or
     the reference's at another precision or with a fault) against
     ``ref``; ``details`` gets the worst leaves where given."""
-    out = {"env": 0.0, "gst": 0.0, "act": 0.0}
+    out = {"env": 0.0}
     if prog.get("start") is not None and ref.get("start") is not None:
         g, n = _gap(prog["start"], ref["start"])
         out["env"] = g + n
+    runs_gst = cfg.sim.predict_method == "inferred"
     gst = _Rms()
     for p, r in zip(prog["steps"], ref["steps"]):
         out["env"] = max(out["env"], _env_number(cfg, p, ref, r))
-        _gst_gaps(p, r, gst)
-    out["gst"], out["gst_pooled"] = gst.value(), gst.pooled()
+        if runs_gst:
+            _gst_gaps(p, r, gst)
+    if runs_gst:
+        out["gst"], out["gst_pooled"] = gst.value(), gst.pooled()
     if len(prog["steps"]) != len(ref["steps"]):
         out["env"] = math.inf
     act = {k: _Rms() for k in ("value", "h", "action", "log_prob")}

@@ -4,7 +4,9 @@ handed to the port and to the reference alike.
 The configuration file's ``benchmark`` group names them: ``policy_weights``
 is a committed ``.npz`` (both sides read the file) or ``"seeded"`` (drawn
 here on the device from the run's seed, one draw for all leaves, and the
-same tensors loaded into both); ``gst_weights`` is a committed ``.npz``.
+same tensors loaded into both); ``gst_weights`` is a committed ``.npz``,
+required where the configuration runs the GST (``sim.predict_method`` is
+``inferred``) and absent everywhere else, where no GST is loaded.
 """
 
 from __future__ import annotations
@@ -19,13 +21,21 @@ from . import check, port, spec
 
 
 def load(run, cfg):
-    """(the port's policy, the port's GST, the check's Records with the
-    weights filled in) for the run's configuration."""
+    """(the port's policy, the port's GST or None where the configuration
+    runs none, the check's Records with the weights filled in) for the
+    run's configuration."""
     with open(run.config_path) as f:
         bench = json.load(f)["benchmark"]
     p = run.port
-    gst_path = os.path.join(spec.ROOT, bench["gst_weights"])
-    gst = p["predictor"].load_gst(cfg.pred, gst_path, run.device)
+    runs_gst = cfg.sim.predict_method == "inferred"
+    if runs_gst != ("gst_weights" in bench):
+        raise SystemExit(f"{run.config_path}: gst_weights is required where "
+                         f"predict_method is 'inferred' and absent elsewhere "
+                         f"(predict_method {cfg.sim.predict_method!r})")
+    gst_path, gst = None, None
+    if runs_gst:
+        gst_path = os.path.join(spec.ROOT, bench["gst_weights"])
+        gst = p["predictor"].load_gst(cfg.pred, gst_path, run.device)
     policy_path, policy_state = None, None
     if bench["policy_weights"] == "seeded":
         shapes = rpolicy.PolicyHead(

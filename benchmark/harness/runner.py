@@ -121,6 +121,12 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
               config_path=config_path or os.path.join(root,
                                                       cell.config_file),
               mix=mix)
+    # the model FLOPs of the base and the GST the configuration runs: a
+    # base without a count stops the run here, before set-up
+    with open(run.config_path) as f:
+        snapshot = json.load(f)
+    flops = (work.policy_row_flops(snapshot, root),
+             work.gst_env_flops(snapshot))
     if trace:
         t = mix.get("trace", {})
         run.tracer = Tracer(device, int(t.get("skip", 1)),
@@ -162,7 +168,7 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
     result = {"correct": False, "attempted": run.attempted,
               "failed": run.failed}
     if trace:
-        metrics, breakdown = _per_layer(run, cell, root)
+        metrics, breakdown = _per_layer(run, cell, root, *flops)
         summary = run.tracer.summary
         if summary is not None and run.tracer.window_s:
             dev["busy_s"] = summary.busy_s
@@ -194,13 +200,12 @@ def execute(cell_name: str, seed: int, seconds: float, trace: bool,
     return result
 
 
-def _per_layer(run: Run, cell: spec.Cell, root: str):
-    with open(run.config_path) as f:
-        snapshot = json.load(f)
+def _per_layer(run: Run, cell: spec.Cell, root: str, policy_row_flops: int,
+               gst_env_flops: int):
     readings = Readings(run=run, spans=run.spans, trace=run.tracer.summary,
                         trace_window_s=run.tracer.window_s,
-                        policy_row_flops=work.policy_row_flops(snapshot),
-                        gst_env_flops=work.gst_env_flops(snapshot))
+                        policy_row_flops=policy_row_flops,
+                        gst_env_flops=gst_env_flops)
     metrics = {}
     readers = spec.readers(cell, root)
     for m in cell.per_layer:

@@ -6,8 +6,11 @@ A cell names a configuration and a traffic mix. The configuration is
 ``mixes/<traffic>.json`` and names the driver (``drivers/<driver>.py``) that
 runs it, each per-layer metric ``<family>.<suffix>`` is read by
 ``metrics/<family>.py``, and the limits of the cell's correctness check are
-``limits/<cell>.json``. A new cell, configuration, mix, driver, metric or
-limit file is found by its name alone: nothing here lists them.
+``limits/<cell>.json``. The configuration's ``robot.policy`` names the
+reference's policy base (``reference/bases/<robot.policy>.py``) and the
+count of its model FLOPs (``flops/<robot.policy>.py``), found the same way.
+A new cell, configuration, mix, driver, metric, limit file, base or count
+is found by its name alone: nothing here lists them.
 """
 
 from __future__ import annotations

@@ -6,10 +6,14 @@ The bound arithmetic is a copy of ``chip_smoke.py``'s ``bound_ms``,
 program cannot move the yardstick. The model FLOPs count the products of
 the policy's forward for one row (one env at one step), and of the GST's
 forward for one env, from the configuration's widths; the update's rows
-count three times (forward and backward), recomputation not at all.
+count three times (forward and backward), recomputation not at all. Each
+policy base's count is a file of its own, ``flops/<robot.policy>.py``,
+found by that name.
 """
 
 from __future__ import annotations
+
+from . import spec
 
 # NVIDIA H100 SXM data sheet, dense: bf16 and float32 outside the tensor
 # cores; HBM3 bandwidth
@@ -55,52 +59,35 @@ def k2_bound_s(rows: int, a: int, d: int, dtype: str) -> float:
     return bound_s(*k2_work(rows, a, d), dtype)
 
 
-def _dense(n_in: int, n_out: int) -> int:
+def dense(n_in: int, n_out: int) -> int:
+    """The FLOPs of one row through a dense layer (in, out)."""
     return 2 * n_in * n_out
 
 
-def policy_row_flops(snapshot: dict) -> int:
-    """The policy's forward for one env at one step (the attention-graph
-    network): every dense layer, the human-human attention with the q/k/v
-    projections folded into one (D, 3D) product as the kernel runs it, the
-    robot-human attention, the GRU, the heads."""
-    net, sim = snapshot["network"], snapshot["sim"]
-    a = sim["human_num"] + sim.get("human_num_range", 0)
-    e = 2 if sim["predict_method"] == "none" else 2 * (sim["predict_steps"] + 1)
-    d, h = net["attn_size"], net["human_node_rnn_size"]
-    out, emb = net["human_node_output_size"], net["human_node_embedding_size"]
-    f = _dense(2 + 7, 256)                                    # robot_linear
-    if net["use_self_attn"]:
-        f += a * (_dense(e, 128) + _dense(128, d))            # embed_0, _1
-        f += a * (_dense(d, 3 * d) + _dense(d, d))            # qkv, out
-        f += 2 * 2 * a * a * d                                # QK^T, PV
-        f += a * _dense(d, 256)                               # spatial_linear
-    else:
-        f += a * (_dense(e, 128) + _dense(128, 256))
-    if net["use_hr_attn"]:
-        att = net["attention_size"]
-        f += _dense(256, att) + a * _dense(256, att)          # edge layers
-        f += 2 * a * att + 2 * a * 256                        # scores, sum
-    f += 2 * _dense(256, emb)                                 # EndRNN embeds
-    f += _dense(2 * emb, 3 * h) + _dense(h, 3 * h)            # GRU
-    f += _dense(h, out)                                       # output_linear
-    f += 4 * _dense(out, out) + _dense(out, 1)                # critic, actor
-    f += _dense(out, 2)                                       # fc_mean
-    return f
+def policy_row_flops(snapshot: dict, root: str = spec.ROOT) -> int:
+    """The policy's forward for one env at one step, counted for the base
+    that ``robot.policy`` names by ``flops/<robot.policy>.py``'s
+    ``row_flops``; a base without such a file stops the run."""
+    policy = snapshot["robot"]["policy"]
+    return int(spec.load_module("flops", policy, root).row_flops(snapshot))
 
 
 def gst_env_flops(snapshot: dict) -> int:
     """The GST's forward for one env (the full-connectivity spatial encoder
     over A humans at each of the obs_len observed and pred_len - 1 fed-back
-    steps, the LSTM at each, the Gaussian head at each of pred_len)."""
+    steps, the LSTM at each, the Gaussian head at each of pred_len); 0
+    where the configuration runs no GST (``predict_method`` other than
+    ``inferred``)."""
     p, sim = snapshot["pred"], snapshot["sim"]
+    if sim["predict_method"] != "inferred":
+        return 0
     a = sim["human_num"] + sim.get("human_num_range", 0)
     e, ff, hid = p["embedding_size"], p["dim_feedforward"], \
         p["lstm_hidden_size"]
-    layer = (_dense(e, 3 * e) + _dense(e, e) + _dense(e, ff) + _dense(ff, e)
+    layer = (dense(e, 3 * e) + dense(e, e) + dense(e, ff) + dense(ff, e)
              + 2 * 2 * a * e)                                 # per node
-    spatial = _dense(p["motion_dim"], e) + p["spatial_num_layers"] * layer
-    lstm = _dense(e, 4 * hid) + _dense(hid, 4 * hid)
+    spatial = dense(p["motion_dim"], e) + p["spatial_num_layers"] * layer
+    lstm = dense(e, 4 * hid) + dense(hid, 4 * hid)
     times = p["obs_seq_len"] + p["pred_seq_len"] - 1
     return a * (times * (spatial + lstm)
-                + p["pred_seq_len"] * _dense(hid, p["output_dim"]))
+                + p["pred_seq_len"] * dense(hid, p["output_dim"]))

@@ -1,10 +1,15 @@
 """Policy API of the reference: ``act``, ``get_value`` and
 ``evaluate_actions`` over the plain network (a frozen copy of the port's
-``models/policy.py``, without DS-RNN)."""
+``models/policy.py``). The base is found by the configuration's
+``robot.policy`` alone, in ``bases/<robot.policy>.py``: the attention graph
+(``selfAttn_merge_srnn``) and DS-RNN (``srnn``) today."""
 
 from __future__ import annotations
 
+import importlib
 import math
+import os
+import re
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
@@ -13,28 +18,37 @@ from torch import nn
 from .config import Config
 from .params import params_tree, tree_to_state_dict
 from . import distributions
-from .policy_net import SelfAttnMergeSRNN
 
 # dense layers the JAX package initialises orthogonal(sqrt 2)
 # (``policy_net.py:259-311``, ``srnn.py:121-132``)
 _ORTH2 = ("robot_linear", "spatial_linear", "spatial_linear_0",
           "spatial_linear_1", "critic_0", "critic_1", "actor_0", "actor_1",
           "critic_linear")
-BASES = {"selfAttn_merge_srnn": SelfAttnMergeSRNN}
+_BASES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bases")
+_NAME = re.compile(r"^[A-Za-z_][A-Za-z0-9_]{0,63}$")
+
+
+def base_class(policy: str):
+    """The base network of ``robot.policy`` = ``policy``: ``Base`` of
+    ``bases/<policy>.py``."""
+    if not _NAME.match(policy) or not os.path.exists(
+            os.path.join(_BASES_DIR, f"{policy}.py")):
+        known = sorted(f[:-3] for f in os.listdir(_BASES_DIR)
+                       if f.endswith(".py") and not f.startswith("_"))
+        raise ValueError(f"unknown robot policy {policy!r}, expected one of "
+                         f"{known}")
+    return importlib.import_module(f"{__package__}.bases.{policy}").Base
 
 
 class PolicyHead(nn.Module):
     """Base network + DiagGaussian action head; submodules ``base`` and
-    ``dist`` as in the flax tree. The base is the attention-graph policy or,
-    with ``robot.policy == "srnn"``, DS-RNN (``policy.py:24-27``)."""
+    ``dist`` as in the flax tree. The base is the one ``robot.policy`` names
+    (:func:`base_class`)."""
 
     def __init__(self, cfg: Config):
         super().__init__()
-        if cfg.robot.policy not in BASES:
-            raise ValueError(f"unknown robot policy {cfg.robot.policy!r}, "
-                             f"expected one of {sorted(BASES)}")
         self.cfg = cfg
-        self.base = BASES[cfg.robot.policy](cfg)
+        self.base = base_class(cfg.robot.policy)(cfg)
         self.dist = distributions.DiagGaussianParams(
             cfg.network.human_node_output_size, 2)
 

@@ -42,11 +42,19 @@ TINY_MIX = {
 }
 
 
+# a configuration with another policy base and no GST, kept as test data:
+# DS-RNN in CrowdSimVarNum (``srnn_varnum_h20.json``), its cell in
+# ``later_cells.json`` and its limits in ``srnn_fixture_limits.json``
+SRNN = "srnn_fixture-train"
+
+
 @pytest.fixture(scope="session")
 def all_cells(tmp_path_factory) -> str:
     """A checkout root whose BENCHMARK.json also holds the cells kept for
     later (``later_cells.json``: the suite and the gym loop, built and
-    proven but left out of BENCHMARK.json), so their drivers stay tested."""
+    proven but left out of BENCHMARK.json) and the DS-RNN fixture
+    :data:`SRNN`, so their drivers stay tested. Its ``benchmark`` links to
+    every file of the benchmark, and its ``limits`` add the fixture's."""
     root = tmp_path_factory.mktemp("all_cells")
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         bench = json.load(f)
@@ -56,7 +64,15 @@ def all_cells(tmp_path_factory) -> str:
         bench[key].extend(entries)
     with open(root / "BENCHMARK.json", "w") as f:
         json.dump(bench, f)
-    os.symlink(BENCH, root / "benchmark")
+    (root / "benchmark" / "limits").mkdir(parents=True)
+    for name in os.listdir(BENCH):
+        if name != "limits":
+            os.symlink(os.path.join(BENCH, name), root / "benchmark" / name)
+    for name in os.listdir(os.path.join(BENCH, "limits")):
+        os.symlink(os.path.join(BENCH, "limits", name),
+                   root / "benchmark" / "limits" / name)
+    os.symlink(os.path.join(BENCH, "tests", "srnn_fixture_limits.json"),
+               root / "benchmark" / "limits" / f"{SRNN}.json")
     return str(root)
 
 

@@ -2,16 +2,17 @@
 configuration's precision) fails the cell's check, here at a tiny size on
 the CPU; on the card at each cell's own size it is read by
 ``benchmark/calibrate.py``, and the test marked ``cuda`` reads three seeds
-of each train cell there."""
+of each train cell and of the DS-RNN fixture there."""
 
 import pytest
 import torch
 
-from conftest import need_card, tiny_config, tiny_mix
+from conftest import SRNN, need_card, tiny_config, tiny_mix
 import calibrate
 from harness import spec
 
-CELLS = ["flagship-train", "config5-train", "flagship-eval", "flagship-gym"]
+CELLS = ["flagship-train", "config5-train", "flagship-eval", "flagship-gym",
+         SRNN]
 
 
 def _fails(cell, readings, root=None):
@@ -30,9 +31,10 @@ def test_control_fails_at_a_tiny_size(cell, tmp_path, all_cells):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["flagship-train", "config5-train"])
-def test_control_fails_on_the_card(cell):
+@pytest.mark.parametrize("cell", ["flagship-train", "config5-train", SRNN])
+def test_control_fails_on_the_card(cell, all_cells):
     need_card()
     for seed in (11, 12, 13):
-        r = calibrate.readings(cell, seed, 1.0, torch.device("cuda", 0), ())
-        assert _fails(cell, r), r
+        r = calibrate.readings(cell, seed, 1.0, torch.device("cuda", 0), (),
+                               root=all_cells)
+        assert _fails(cell, r, all_cells), r

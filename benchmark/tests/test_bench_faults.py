@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import tiny_config, tiny_mix
+from conftest import SRNN, tiny_config, tiny_mix
 from harness import port, runner
 
 P = port.import_port()
@@ -101,6 +101,9 @@ FAULTS = {
     "config5-train": {"state_unchanged": _adam_moves_nothing,
                       "half_batch": _half_minibatch,
                       "answer_altered": _reward_altered_in_rollout},
+    SRNN: {"state_unchanged": _adam_moves_nothing,
+           "half_batch": _half_minibatch,
+           "answer_altered": _reward_altered_in_rollout},
     "flagship-eval": {"state_unchanged": _humans_stay,
                       "half_batch": _half_suite,
                       "answer_altered": _reward_altered_in_pretext},

@@ -1,13 +1,15 @@
 """The work counts behind the rooflines and mfu, against counts made by
-hand."""
+hand, each policy base's by its own file."""
 
 import json
 import os
+import time
 
 import pytest
+import torch
 
 from conftest import BENCH
-from harness import work
+from harness import runner, work
 
 # K1 at rows x A, D 512. FLOPs: QKV 2*T*D*3D + QK^T and PV 2*2*rows*A*A*D +
 # out 2*T*D*D (T = rows*A tokens). Bytes: x and out in f32 (4*T*D each),
@@ -43,9 +45,16 @@ def test_bounds_pick_the_larger_term():
         max(flops / 67e12, nbytes / 3.35e12))
 
 
-def _flagship():
-    with open(os.path.join(BENCH, "configs", "flagship_gst_h20.json")) as f:
+def _snapshot(name):
+    path = os.path.join(BENCH, "configs", f"{name}.json")
+    if not os.path.exists(path):
+        path = os.path.join(BENCH, "tests", f"{name}.json")
+    with open(path) as f:
         return json.load(f)
+
+
+def _flagship():
+    return _snapshot("flagship_gst_h20")
 
 
 def test_policy_row_flops_at_the_flagship_shapes():
@@ -73,3 +82,44 @@ def test_gst_env_flops_at_the_flagship_shapes():
     per_time = 256 + 24_576 + 5_120 + 8_192 + 32_768 + 65_536
     assert work.gst_env_flops(_flagship()) == 20 * (9 * per_time
                                                     + 5 * 640) == 24_624_640
+
+
+# (policy_row_flops, gst_env_flops) of each configuration: the accepted two
+# as the benchmark has counted them since it was defined, and the DS-RNN
+# fixture (no GST)
+PINNED = {"flagship_gst_h20": (52_247_040, 24_624_640),
+          "config5_gst_h10-50": (132_353_280, 65_017_600),
+          "srnn_varnum_h20": (11_882_154, 0)}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_model_flops_pinned(name):
+    s = _snapshot(name)
+    assert (work.policy_row_flops(s), work.gst_env_flops(s)) == PINNED[name]
+
+
+def test_policy_row_flops_of_ds_rnn():
+    # A 20 humans, spatial edges of 2; a GRU dense(in, 3H) + dense(H, 3H)
+    def d(i, o):
+        return 2 * i * o
+    a, e = 20, 2
+    items = [d(2, 64) + d(64, 768) + d(256, 768),             # temporal edge
+             a * (d(e, 64) + d(64, 768) + d(256, 768)),       # spatial edges
+             d(256, 64) + a * d(256, 64) + 2 * a * 64 + 2 * a * 256,  # attn
+             d(7, 3) + d(3, 64) + d(512, 64) + d(128, 384) + d(128, 384)
+             + d(128, 256),                                   # node
+             4 * d(256, 256) + d(256, 1) + d(256, 2)]         # heads
+    assert work.policy_row_flops(_snapshot("srnn_varnum_h20")) \
+        == sum(items) == 11_882_154
+
+
+def test_a_base_without_a_count_stops_the_run(tmp_path):
+    s = _flagship()
+    s["robot"]["policy"] = "uncounted_base"
+    with pytest.raises(SystemExit, match="no flops file"):
+        work.policy_row_flops(s)
+    path = tmp_path / "uncounted.json"
+    path.write_text(json.dumps(s))
+    with pytest.raises(SystemExit, match="no flops file"):
+        runner.execute("flagship-train", 1, 0.5, False, torch.device("cpu"),
+                       time.perf_counter(), config_path=str(path))
