@@ -374,7 +374,8 @@ def build_config(args) -> Config:
     the config's own values for flags a CLI does not have (test has no
     minibatch, epoch, entropy or lr-decay flags); and the optional overrides
     ``randomize_attributes``, ``kinematics``, ``robot_v_pref``,
-    ``spin_warmup_steps`` and ``gst_matmul_dtype``."""
+    ``spin_warmup_steps``, ``gst_matmul_dtype`` and ``policy_base`` (the
+    policy's base, ``robot.policy``: the attention graph or DS-RNN)."""
     if args.env_name == "CrowdSimVarNum":
         cfg = varnum_config(human_num=args.human_num,
                             human_num_range=args.human_num_range)
@@ -410,6 +411,9 @@ def build_config(args) -> Config:
     if getattr(args, "gst_matmul_dtype", None):
         cfg = cfg.replace(pred=dataclasses.replace(
             cfg.pred, matmul_dtype=args.gst_matmul_dtype))
+    if getattr(args, "policy_base", None):
+        cfg = cfg.replace(robot=dataclasses.replace(
+            cfg.robot, policy=args.policy_base))
     return cfg
 
 

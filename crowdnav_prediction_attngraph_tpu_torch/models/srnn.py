@@ -8,6 +8,12 @@ the flagship policy. Submodule and parameter names follow the flax tree, so
 ``utils/params.tree_to_state_dict`` of a JAX tree loads directly. Plain
 PyTorch: the JAX package has no kernel here either. Each GRU multiplies its
 carry by the done mask before every step (srnn_model.py:35-105).
+
+While the port's tracing is on (``utils/profiling``), each block of
+:meth:`SRNN.forward` is a span, ``srnn.temporal_edge``,
+``srnn.spatial_edge``, ``srnn.attention``, ``srnn.node`` and
+``srnn.heads``, and the counter ``srnn.gru_cells`` counts the GRU cell calls
+(3 x T a forward: the temporal, spatial and node GRUs over T steps).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import Config
+from ..utils.profiling import count, span
 from .policy_net import TorchGRUCell
 
 
@@ -27,6 +34,7 @@ def _masked_gru(cell: TorchGRUCell, x, h, masks):
     """The GRU over time with done-mask resets (``srnn.py:21-35``).
     x (T, N, E, in); h (N, E, H); masks (T, N). Returns (outputs (T, N, E,
     H), the last carry)."""
+    count("srnn.gru_cells", x.shape[0])
     outs = []
     for t in range(x.shape[0]):
         h = cell(x[t], h * masks[t][:, None, None])
@@ -130,18 +138,25 @@ class SRNN(nn.Module):
         spatial_edges = obs["spatial_edges"].reshape(T, N, A, -1)
         h_edges = rnn_hxs["human_human_edge_rnn"]               # (N, A+1, 256)
 
-        out_temporal, h_temporal = self.edgeRNN_temporal(
-            temporal_edges, h_edges[:, 0:1], masks)
-        out_spatial, h_spatial = self.edgeRNN_spatial(
-            spatial_edges, h_edges[:, 1:], masks)
-        weighted, _ = self.attn(out_temporal, out_spatial)
-        outputs, h_node = self.humanNodeRNN(
-            self.robot_linear(robot_node), out_temporal, weighted,
-            rnn_hxs["human_node_rnn"], masks)
-        x = outputs[:, :, 0, :]
-        hidden_critic = torch.tanh(self.critic_1(torch.tanh(self.critic_0(x))))
-        hidden_actor = torch.tanh(self.actor_1(torch.tanh(self.actor_0(x))))
-        value = self.critic_linear(hidden_critic)
+        with span("srnn.temporal_edge"):
+            out_temporal, h_temporal = self.edgeRNN_temporal(
+                temporal_edges, h_edges[:, 0:1], masks)
+        with span("srnn.spatial_edge"):
+            out_spatial, h_spatial = self.edgeRNN_spatial(
+                spatial_edges, h_edges[:, 1:], masks)
+        with span("srnn.attention"):
+            weighted, _ = self.attn(out_temporal, out_spatial)
+        with span("srnn.node"):
+            outputs, h_node = self.humanNodeRNN(
+                self.robot_linear(robot_node), out_temporal, weighted,
+                rnn_hxs["human_node_rnn"], masks)
+        with span("srnn.heads"):
+            x = outputs[:, :, 0, :]
+            hidden_critic = torch.tanh(
+                self.critic_1(torch.tanh(self.critic_0(x))))
+            hidden_actor = torch.tanh(
+                self.actor_1(torch.tanh(self.actor_0(x))))
+            value = self.critic_linear(hidden_critic)
         return value, hidden_actor, {
             "human_node_rnn": h_node,
             "human_human_edge_rnn": torch.cat([h_temporal, h_spatial], dim=1)}

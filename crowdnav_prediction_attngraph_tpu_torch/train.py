@@ -11,6 +11,14 @@ loads with ``--params``). The flagship recipe on the card:
       --output-dir trained_models/my_model --num-processes 64 \\
       --use-linear-lr-decay
 
+``--policy-base srnn`` trains DS-RNN in the attention graph's place (the
+upstream recipe runs it in CrowdSimVarNum); ``config.json`` keeps the base,
+so ``test --model-dir`` scores the run with it:
+
+  python -m crowdnav_prediction_attngraph_tpu_torch.train \\
+      --output-dir trained_models/my_srnn --env-name CrowdSimVarNum \\
+      --policy-base srnn --num-processes 64 --use-linear-lr-decay
+
 Runs on ``cuda`` unless ``--device cpu`` is given. ``--gst-params`` (a
 ``.npz`` export, the committed in-repo predictor by default, or one of the
 reference's ``.pt`` checkpoints, as a file or as a results dir holding
@@ -51,7 +59,7 @@ from .algo import evaluation
 from .algo import ppo as ppo_mod
 from .config import build_config
 from .models.gst.predictor import load_gst
-from .models.policy import load_policy
+from .models.policy import BASES, load_policy
 from .parallel import launch
 from .test import DEFAULT_GST_PARAMS
 from .utils import checkpoint as ckpt_util
@@ -96,6 +104,10 @@ def _parser():
     p.add_argument("--spin-warmup-steps", type=int, default=0,
                    help="anneal the unicycle spin penalty linearly from 0 "
                         "over this many env steps")
+    p.add_argument("--policy-base", default="selfAttn_merge_srnn",
+                   choices=sorted(BASES),
+                   help="the policy's base (robot.policy): the attention "
+                        "graph, or DS-RNN")
     p.add_argument("--resume", default=None,
                    help="checkpoint directory of a port run to resume from")
     p.add_argument("--init-params-from", default=None,

@@ -15,7 +15,10 @@ states, observations, rewards and one tiny ``train_iteration`` are
 bit-equal with the spans on and off; the kernels' launch counts appear in
 the snapshot; ``train --spans`` and ``test --spans`` print the table;
 ``tools/profile_spans.py`` reads a synthetic trace as it should and gives
-its readings at a tiny size (with no device ops on the CPU).
+its readings at a tiny size (with no device ops on the CPU), DS-RNN's
+among them with ``--config srnn``. DS-RNN's act and minibatch loss give
+its five ``srnn.*`` spans, nested in ``policy.act`` and ``ppo.loss``, and
+``srnn.gru_cells`` = 3 x T a forward; off, they leave the registry empty.
 
 On the CPU, ``orca_velocity_batch`` runs its plain stages (their spans,
 LP3's host read) and never loads the ORCA kernel's library.
@@ -42,7 +45,8 @@ import torch
 from crowdnav_prediction_attngraph_tpu_torch import test as test_cli
 from crowdnav_prediction_attngraph_tpu_torch import train as train_cli
 from crowdnav_prediction_attngraph_tpu_torch.algo import ppo
-from crowdnav_prediction_attngraph_tpu_torch.config import config_from_snapshot
+from crowdnav_prediction_attngraph_tpu_torch.config import (
+    config_from_snapshot, varnum_config)
 from crowdnav_prediction_attngraph_tpu_torch.env import orca, vector
 from crowdnav_prediction_attngraph_tpu_torch.models import policy as pmod
 from crowdnav_prediction_attngraph_tpu_torch.models.gst.predictor import load_gst
@@ -431,6 +435,62 @@ def test_spans_leave_train_iteration_bit_equal():
                                                  "ppo.update")}
 
 
+# ------------------------------------------------------------------ DS-RNN
+
+SRNN_SPANS = ("srnn.temporal_edge", "srnn.spatial_edge", "srnn.attention",
+              "srnn.node", "srnn.heads")
+
+
+@pytest.fixture(scope="module")
+def srnn():
+    """DS-RNN in CrowdSimVarNum at 4 envs x 3 steps, seeded, and one
+    rollout's batch (made with the spans off)."""
+    cfg = varnum_config(human_num=4)
+    cfg = cfg.replace(
+        robot=dataclasses.replace(cfg.robot, policy="srnn"),
+        ppo=dataclasses.replace(cfg.ppo, num_processes=ENVS, num_steps=3))
+    ts = ppo.init_train_state(cfg, None, "cpu")
+    ts, batch = ppo.rollout(cfg, ts, None)
+    return cfg, ts, batch
+
+
+def _srnn_act_and_loss(cfg, ts, batch) -> int:
+    """One act over every env, then one minibatch loss over half of them;
+    returns ``srnn.gru_cells`` as it stood after the act."""
+    pmod.act(ts.model, ts.obs, ts.hxs, ts.masks)
+    after_act = profiling.snapshot()["counters"].get("srnn.gru_cells", 0)
+    returns, adv = ppo.advantages(cfg, batch)
+    ppo.ppo_loss(cfg, ts.model, batch, returns, adv,
+                 torch.arange(ENVS // 2))
+    return after_act
+
+
+def test_srnn_off_leaves_registry_empty(srnn):
+    assert _srnn_act_and_loss(*srnn) == 0
+    snap = profiling.snapshot()
+    assert snap["spans"] == [] and snap["totals"] == {}
+    assert "srnn.gru_cells" not in snap["counters"]
+
+
+def test_srnn_spans_nest_in_act_and_loss(srnn):
+    cfg = srnn[0]
+    profiling.enable()
+    after_act = _srnn_act_and_loss(*srnn)
+    profiling.disable()
+    snap = profiling.snapshot()
+    T = cfg.ppo.num_steps
+    assert after_act == 3
+    assert snap["counters"]["srnn.gru_cells"] == 3 + 3 * T
+    inner = [s for s in snap["spans"] if s["name"].startswith("srnn.")]
+    assert [tuple(_path(snap, s)) for s in inner] == (
+        [(n, "policy.act") for n in SRNN_SPANS]
+        + [(n, "ppo.loss") for n in SRNN_SPANS])
+    for a, b in zip(inner, inner[1:]):
+        assert a["end_ns"] <= b["start_ns"]
+    assert all(snap["totals"][n]["count"] == 2 for n in SRNN_SPANS)
+    assert "srnn.gru_cells" in profiling.per_step_table(snap)
+
+
 # ------------------------------------------------- launches and the CLIs
 
 def test_snapshot_reads_kernel_launch_counts(monkeypatch):
@@ -576,3 +636,20 @@ def test_tool_reports_the_readings_on_the_cpu(capsys):
     assert "idle_gaps_by_span" not in out["traced"]
     assert out["host_cost"]["span_us_off"] < out["host_cost"]["span_us_on"]
     assert not profiling._ON
+
+
+def test_tool_reports_ds_rnn_spans_on_the_cpu(capsys):
+    T = 3
+    out = _tool().main(["--config", "srnn", "--device", "cpu", "--envs", "4",
+                        "--steps", str(T), "--iterations", "1",
+                        "--cost-rounds", "0"])
+    capsys.readouterr()
+    s = out["spans"]
+    assert s["env_steps"] == T
+    for name in SRNN_SPANS:
+        assert name in s["spans_per_step"], name
+    assert "gst.pretext" not in s["spans_per_step"]
+    # an iteration: T acts and the bootstrap value (T = 1 each), then the
+    # ppo_epoch x num_mini_batch minibatch forwards over T steps
+    cells = 3 * (T + 1) + 5 * 2 * 3 * T
+    assert s["counters_per_step"]["srnn.gru_cells"] == cells / T

@@ -1,7 +1,10 @@
 """The port's ``train`` CLI end to end on the CPU at a tiny size: 4 humans,
 attn_size 64, 4 envs, 5 steps per update, 2 updates, then a resume for two
 more, then the port's ``test`` CLI on the params ``.npz`` it wrote, and on
-the run's own checkpoints when no ``--params`` is given.
+the run's own checkpoints when no ``--params`` is given. ``--policy-base
+srnn`` trains DS-RNN through the same CLI, in CrowdSimVarNum and in the GST
+env (DS-RNN's spatial-edge GRU takes their 2- and 12-wide edges), and
+``test --model-dir`` scores the run with it.
 
 The time limit is cut to 2.5 s so that episodes end inside the run (the
 progress row is written only once episodes have finished, as in the JAX
@@ -22,6 +25,7 @@ import torch
 from crowdnav_prediction_attngraph_tpu_torch import test as test_cli
 from crowdnav_prediction_attngraph_tpu_torch import train as train_cli
 from crowdnav_prediction_attngraph_tpu_torch.models import policy as t_policy
+from crowdnav_prediction_attngraph_tpu_torch.models.srnn import SRNN
 from crowdnav_prediction_attngraph_tpu_torch.utils import checkpoint
 
 # the JAX package's progress.csv columns, in order (train.py:307-317)
@@ -155,3 +159,40 @@ def test_test_cli_scores_the_runs_own_checkpoints(tiny, tmp_path,
     # the flagship run scores its committed export, step 10250
     assert test_cli.resolve_params(test_cli.DEFAULT_MODEL_DIR) == (
         test_cli.DEFAULT_PARAMS, 10250)
+
+
+def test_policy_base_defaults_to_the_attention_graph():
+    args = train_cli._parser().parse_args([])
+    assert args.policy_base == "selfAttn_merge_srnn"
+    assert train_cli.build_config(args).robot.policy == "selfAttn_merge_srnn"
+    args = train_cli._parser().parse_args(["--policy-base", "srnn"])
+    assert train_cli.build_config(args).robot.policy == "srnn"
+    with pytest.raises(SystemExit):
+        train_cli._parser().parse_args(["--policy-base", "lstm"])
+
+
+@pytest.mark.parametrize("env_name", ["CrowdSimVarNum",
+                                      "CrowdSimPredRealGST"])
+def test_train_and_test_carry_ds_rnn(env_name, tiny, tmp_path, monkeypatch):
+    out = str(tmp_path / "run")
+    ts = train_cli.main(ARGS + ["--output-dir", out, "--num-env-steps", "20",
+                                "--eval-interval", "0", "--env-name",
+                                env_name, "--policy-base", "srnn"])
+    assert isinstance(ts.model.base, SRNN)
+    with open(os.path.join(out, "config.json")) as f:
+        snap = json.load(f)
+    assert snap["robot"]["policy"] == "srnn" and snap["env_name"] == env_name
+    assert checkpoint.latest_step(os.path.join(out, "checkpoints")) == 0
+    loaded = []
+
+    def record(cfg, params, device):
+        loaded.append(t_policy.load_policy(cfg, params, device))
+        return loaded[-1]
+    monkeypatch.setattr(test_cli, "load_policy", record)
+    res = test_cli.main(["--model-dir", out, "--test-case-size", "2",
+                         "--device", "cpu", "--out-dir",
+                         str(tmp_path / "eval")])
+    assert len(loaded) == 1 and isinstance(loaded[0].base, SRNN)
+    assert np.isfinite(res["success_rate"]) and res["env_steps"] > 0
+    for name, p in loaded[0].state_dict().items():
+        assert torch.equal(p, ts.model.state_dict()[name]), name

@@ -1,14 +1,17 @@
 """Where a PPO iteration of the port spends its time, by the port's own spans
-and counters (``utils/profiling``), for the flagship recipe or config 5.
+and counters (``utils/profiling``), for the flagship recipe, config 5 or
+DS-RNN.
 
-  python tools/profile_spans.py [--config flagship|config5] [--iterations 4]
+  python tools/profile_spans.py [--config flagship|config5|srnn] [--iterations 4]
       [--cost-rounds 4] [--envs N] [--steps T] [--device cuda]
 
 Builds the configuration from the run snapshot in
 trained_models/GST_predictor_rand_tpu_r5_selfgst (flagship: the snapshot
 with the committed policy; config5: BASELINE config 5 on it, as the train
 CLI's ``--human-num 30 --human-num-range 20 --num-processes 256`` builds
-it, from a seeded ``init_params``) with the spans on, then:
+it, from a seeded ``init_params``; srnn: DS-RNN on it in CrowdSimVarNum
+with no predictor, as ``train --env-name CrowdSimVarNum --policy-base
+srnn`` builds it, from a seeded ``init_params``) with the spans on, then:
 
 * ``init_state_s``: the ``ppo.init_train_state`` span of the set-up;
 * after one warm-up iteration, ``--iterations`` iterations with the spans
@@ -65,13 +68,18 @@ NO_SPAN = "no span"
 
 
 def config(name: str):
-    """The flagship recipe (the snapshot) or config 5 on it."""
+    """The flagship recipe (the snapshot), config 5 or DS-RNN on it."""
     cfg = config_from_snapshot(SNAPSHOT)
     if name == "config5":
         cfg = cfg.replace(
             sim=dataclasses.replace(cfg.sim, human_num=30,
                                     human_num_range=20),
             ppo=dataclasses.replace(cfg.ppo, num_processes=256))
+    elif name == "srnn":
+        cfg = cfg.replace(
+            env_name="CrowdSimVarNum",
+            sim=dataclasses.replace(cfg.sim, predict_method="none"),
+            robot=dataclasses.replace(cfg.robot, policy="srnn"))
     return cfg
 
 
@@ -245,7 +253,8 @@ def build(name: str, device, envs=None, steps=None):
     cfg = cfg.replace(ppo=dataclasses.replace(
         cfg.ppo, num_processes=envs or cfg.ppo.num_processes,
         num_steps=steps or cfg.ppo.num_steps))
-    gst = load_gst(cfg.pred, DEFAULT_GST_PARAMS, device)
+    gst = (load_gst(cfg.pred, DEFAULT_GST_PARAMS, device)
+           if cfg.sim.predict_method == "inferred" else None)
     if name == "flagship":
         model = pmod.load_policy(cfg, DEFAULT_PARAMS, device)
     else:
@@ -256,7 +265,7 @@ def build(name: str, device, envs=None, steps=None):
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", choices=("flagship", "config5"),
+    p.add_argument("--config", choices=("flagship", "config5", "srnn"),
                    default="flagship")
     p.add_argument("--iterations", type=int, default=4)
     p.add_argument("--cost-rounds", type=int, default=4)
