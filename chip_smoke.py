@@ -53,7 +53,15 @@ Phases, each printing one JSON line with its seconds before the next starts:
    back-to-back calls, and its device time from a profiler trace) and the
    plain version (at 500 x 300 in chunks of egos: its LP3 builds (egos, n,
    n, n) tensors) beside the bound (each input read once); fails unless a
-   profiler trace of a call holds one device kernel;
+   profiler trace of a call holds one device kernel; then the spawn kernel
+   (``csrc/human_spawn.cu``, launched by ``env/spawn.py``'s
+   ``batched_circle_spawn`` and ``batched_goal_resample``) against its plain
+   versions bit for bit, with a second run that must give the same bits, at
+   the main path's shapes (``SPAWN_SHAPES``: the events of the flagship, 64
+   envs x 20 slots, and of config 5, 256 x 50, a third of the active humans
+   in need; a flagship auto-reset of 4 envs, every slot, none placed),
+   timed beside its plain version and its bound like the ORCA kernel (one
+   device kernel a call);
 5. evaluate: loads the committed weights and runs the port's seeded
    evaluation of the flagship pair (trained_models/
    GST_predictor_rand_tpu_r5_selfgst, test cases 0..31 as one batch, K1 in
@@ -177,15 +185,16 @@ Phases 9 and 12 cut their suites at 20 steps (40 before the off_path
 phase came), so the phases but orca stay under 300 s; orca adds ~20 s,
 most of it the plain version at 500 x 300.
 
-Every phase from evaluate on counts the ORCA kernel's launches beside
-K1-K3's, zeroed and read at the same points, and fails on another count
+Every phase from evaluate on counts the ORCA and spawn kernels' launches
+beside K1-K3's, zeroed and read at the same points, and fails on another count
 than its env steps give (``orca_solves``: one a step for ORCA humans, one
 for the ORCA robot, ``buffer_len`` for each truth rollout of the test
 phase, the ORCA robot or a ``truth`` env's observation; a ``truth`` env's
 training bounded by its auto-resets): train 2 x 30 = 60, the suites
 ``buffer_len`` + 1 or + 2 a lock-step step; edges none, gst_train some,
-off_path reported. The kernels line gives the ORCA entry those launches
-by phase.
+off_path reported (the spawn kernel's are reported: one a step for each
+event pass, one a reset). The kernels line gives the ORCA and spawn entries
+those launches by phase.
 
 The kernels line also gives each kernel's device launches per call and the
 registers and spills that ptxas reported for each of its CUDA functions.
@@ -225,7 +234,7 @@ from crowdnav_prediction_attngraph_tpu_torch.config import (
     varnum_config)
 from crowdnav_prediction_attngraph_tpu_torch.env import (
     crowd_sim, gym_adapter, lidar)
-from crowdnav_prediction_attngraph_tpu_torch.env import orca
+from crowdnav_prediction_attngraph_tpu_torch.env import orca, spawn
 from crowdnav_prediction_attngraph_tpu_torch.env.orca import (
     _lp2, orca_lines, orca_velocity_batch)
 from crowdnav_prediction_attngraph_tpu_torch.env.pretext import pretext_process
@@ -257,6 +266,8 @@ from crowdnav_prediction_attngraph_tpu_torch.utils.orca_oracle import (
     SCENE_SHAPES, SCENE_TIME_HORIZON, SCENE_TIME_STEP, lp2_failures,
     orca_velocity_np, plain_solve, scene_tensors)
 from crowdnav_prediction_attngraph_tpu_torch.utils.recorder import Recorder
+from crowdnav_prediction_attngraph_tpu_torch.utils.spawn_scenes import (
+    circle_spawn_args, goal_resample_args)
 from crowdnav_prediction_attngraph_tpu_torch.utils.params import (
     flatten_tree, state_dict_to_tree)
 
@@ -791,6 +802,7 @@ def plain_kernels():
 
 
 ORCA = "orca_solve"
+SPAWN = "human_spawn"
 ATTENTION = ("K1_fused_graph_attention", "K2_fused_graph_attention_backward",
              "K3_packed_masked_attention")
 
@@ -800,6 +812,7 @@ def zero_counts():
     fused_graph_attention_backward.launches = 0
     packed_masked_attention.launches = 0
     orca_velocity_batch.launches = 0
+    spawn.launch.launches = 0
 
 
 def read_counts() -> dict:
@@ -807,11 +820,13 @@ def read_counts() -> dict:
             "K2_fused_graph_attention_backward":
                 fused_graph_attention_backward.launches,
             "K3_packed_masked_attention": packed_masked_attention.launches,
-            ORCA: orca_velocity_batch.launches}
+            ORCA: orca_velocity_batch.launches,
+            SPAWN: spawn.launch.launches}
 
 
 def attention_counts(launches) -> dict:
-    """The attention kernels' counts of ``launches``, without ORCA's."""
+    """The attention kernels' counts of ``launches``, without ORCA's and
+    the spawn kernel's."""
     return {k: launches[k] for k in ATTENTION}
 
 
@@ -887,6 +902,72 @@ def phase_orca(device) -> list:
         if m["device_kernels"] is None or len(m["device_kernels"]) != 1:
             fail(f"orca: device kernels of a call at {m['egos']} x "
                  f"{m['lines']}: {m['device_kernels']} (one expected)")
+    return shapes
+
+
+# (entry, envs, slots, need, placed): the flagship's and config 5's events
+# and a flagship auto-reset of 4 envs
+SPAWN_SHAPES = (("circle_spawn", 64, 20, "random", "rest"),
+                ("circle_spawn", 256, 50, "random", "rest"),
+                ("circle_spawn", 4, 20, "all", "none"),
+                ("goal_resample", 64, 20, "random", None),
+                ("goal_resample", 256, 50, "random", None))
+
+
+def check_spawn(entry: str, envs: int, slots: int, need: str, placed,
+                device) -> dict:
+    """The spawn kernel's ``entry`` against its plain version at one shape:
+    bit-equal, the same bits on a second run, both timed. The bound reads
+    each input once and writes the outputs, and counts the rounds' tests as
+    if every slot were pending in every round against every slot (two
+    distances, ~14 operations)."""
+    if entry == "circle_spawn":
+        args = circle_spawn_args(envs, slots, envs + slots, device, need,
+                                 placed)
+        kernel, plain = spawn.batched_circle_spawn, \
+            spawn.reference_circle_spawn
+        rounds, outs = spawn.SPAWN_ROUNDS, 2
+    else:
+        args = goal_resample_args(envs, slots, envs + slots, device, need)
+        kernel, plain = spawn.batched_goal_resample, \
+            spawn.reference_goal_resample
+        rounds, outs = spawn.GOAL_ROUNDS, 1
+
+    def flat(x):
+        return list(x) if isinstance(x, tuple) else [x]
+    got, again, want = (flat(f(*args)) for f in (kernel, kernel, plain))
+    torch.cuda.synchronize()
+    out = {"entry": entry, "envs": envs, "slots": slots,
+           "in_need": int(args[1].sum()),
+           "bitwise": all(torch.equal(x, y) for x, y in zip(got, want)),
+           "bitwise_second_run": all(torch.equal(x, y)
+                                     for x, y in zip(got, again))}
+    if not (out["bitwise"] and out["bitwise_second_run"]):
+        fail(f"spawn: kernel != plain at {entry} {envs} x {slots}: {out}")
+    out["ms"] = time_ms(lambda: kernel(*args), reps=20)
+    out["device_ms"] = device_ms(lambda: kernel(*args))
+    out["plain_ms"] = time_ms(lambda: plain(*args), reps=3, groups=3)
+    nbytes = sum(t.numel() * t.element_size() for t in args
+                 if isinstance(t, torch.Tensor)) + outs * envs * slots * 8
+    out["bound_ms"], out["bound_by"] = bound_ms(
+        14.0 * rounds * envs * slots * slots, nbytes, torch.float32)
+    out["device_kernels"] = device_kernels(lambda: kernel(*args))
+    return out
+
+
+def phase_spawn(device) -> list:
+    """The spawn kernel at the main path's shapes (``SPAWN_SHAPES``); one
+    call must run one device kernel, read from a profiler trace."""
+    t0 = time.perf_counter()
+    before = spawn.launch.launches
+    shapes = [check_spawn(*shape, device) for shape in SPAWN_SHAPES]
+    emit("spawn", t0, shapes=shapes,
+         launches=spawn.launch.launches - before)
+    for m in shapes:
+        if m["device_kernels"] is None or len(m["device_kernels"]) != 1:
+            fail(f"spawn: device kernels of a call at {m['entry']} "
+                 f"{m['envs']} x {m['slots']}: {m['device_kernels']} (one "
+                 f"expected)")
     return shapes
 
 
@@ -1592,8 +1673,9 @@ def phase_edges(device) -> tuple:
     if not all(math.isfinite(v) and v > 0 for v in values):
         fail(f"edges: a rate or time is not finite and positive: {rates}, "
              f"{sweep}")
-    if launches != {**expect, ORCA: 0}:
-        fail(f"edges launches {launches}, expected {expect} and no ORCA")
+    if launches != {**expect, ORCA: 0, SPAWN: 0}:
+        fail(f"edges launches {launches}, expected {expect} and no ORCA "
+             f"or spawn")
     return launches, sweep
 
 
@@ -2048,7 +2130,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     names = [masked_attention.KERNEL, masked_attention.KERNEL_BWD,
-             masked_attention.KERNEL_ATTN, orca.KERNEL]
+             masked_attention.KERNEL_ATTN, orca.KERNEL, spawn.KERNEL]
     reports = _build.build(names)
     ptxas = {k: ptxas_summary(v) for k, v in reports.items()}
     emit("build", t0, kernels=names, ptxas=ptxas)
@@ -2109,6 +2191,7 @@ def main() -> int:
          device_kernels=dev_kernels)
 
     orca_shapes = phase_orca(device)
+    spawn_shapes = phase_spawn(device)
 
     cfg = config_from_snapshot(os.path.join(MODEL_DIR, "config.json"))
     gst = load_gst(cfg.pred, DEFAULT_GST_PARAMS, device)
@@ -2216,8 +2299,22 @@ def main() -> int:
         "by_shape": orca_shapes,
         "ptxas": ptxas.get(orca.KERNEL, {}),
     }
+    spawn_by_path = {p: path_launches[p][SPAWN] for p in path_launches}
+    spawn_entry = {
+        "name": SPAWN, "route": "cuda",
+        "source": "crowdnav_prediction_attngraph_tpu_torch/ops/csrc/"
+                  "human_spawn.cu",
+        "replaces": None,
+        "launches": sum(spawn_by_path.values()),
+        "launches_by_path": spawn_by_path,
+        "shape": {k: spawn_shapes[0][k] for k in ("entry", "envs", "slots")},
+        **{key: spawn_shapes[0][key] for key in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+        "by_shape": spawn_shapes,
+        "ptxas": ptxas.get(spawn.KERNEL, {}),
+    }
     print(json.dumps({"kernels": [k1_entry, k2_entry, k3_entry,
-                                  orca_entry]}), flush=True)
+                                  orca_entry, spawn_entry]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -115,6 +115,28 @@ def _constant(values, device, site: str) -> torch.Tensor:
     return torch.tensor(values, device=device)
 
 
+_KEPT: dict = {}
+
+
+def _kept_constant(values, device, site: str) -> torch.Tensor:
+    """:func:`_constant`, made once per card and kept (never written to);
+    the CPU, where the copy waits for nothing, makes it at every call."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return _constant(values, device, site)
+    key = (values, device)
+    if key not in _KEPT:
+        _KEPT[key] = _constant(values, device, site)
+    return _KEPT[key]
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` is on a card. The events' host reads only skip work
+    that changes no bit: on a card the events run unconditionally (masked
+    as before), with no read; the CPU keeps the reads."""
+    return t.device.type == "cuda"
+
+
 def robot_human_visibility(cfg: Config, state: EnvState) -> torch.Tensor:
     """(B, A): which active humans the robot sees (crowd_sim.py:558-572)."""
     heading = _heading(cfg, state.robot.vel, state.robot.theta)
@@ -499,14 +521,18 @@ def goal_change_draws(cfg: Config) -> int:
     return A + spawn.goal_resample_draws(A)
 
 
-def update_human_goals_randomly(cfg: Config, u, state: EnvState) -> EnvState:
+def update_human_goals_randomly(cfg: Config, u, state: EnvState,
+                                when=None) -> EnvState:
     """Random goal changes, each human w.p. goal_change_chance
-    (crowd_sim.py:415-450). u (B, goal_change_draws(cfg))."""
+    (crowd_sim.py:415-450), in the envs where ``when`` (B,) holds (all when
+    None). u (B, goal_change_draws(cfg))."""
     A = cfg.sim.max_human_num
     u_chance, u_goal = spawn.split_draws(u, (A, spawn.goal_resample_draws(A)))
     h = state.humans
     active = _active_mask(cfg, state.human_num)
     need = (u_chance <= cfg.humans.goal_change_chance) & active & (h.v_pref != 0.0)
+    if when is not None:
+        need = need & when[:, None]
     goal = spawn.batched_goal_resample(
         u_goal, need, h.radius, h.v_pref, cfg.sim.circle_radius,
         state.robot.pos, state.robot.goal, state.robot.radius, h.pos, h.goal,
@@ -526,7 +552,7 @@ def end_goal_updates(cfg: Config, u, state: EnvState) -> EnvState:
     active = _active_mask(cfg, state.human_num)
     h = state.humans
     reached = active & (torch.linalg.norm(h.goal - h.pos, dim=-1) < h.radius)
-    if not _read_any(reached, "sync.end_goal"):
+    if not _on_card(reached) and not _read_any(reached, "sync.end_goal"):
         return state
     if not _unicycle(cfg):
         return _respawn_humans(cfg, u, state, reached)
@@ -549,15 +575,16 @@ def _uniform_int(u, high):
     return torch.minimum((u * (high + 1)).long(), high)
 
 
-def vary_human_num(cfg: Config, u, state: EnvState, pred_rule: bool
-                   ) -> EnvState:
+def vary_human_num(cfg: Config, u, state: EnvState, pred_rule: bool,
+                   when=None) -> EnvState:
     """Add or remove humans (crowd_sim.py:505-546; crowd_sim_var_num.py
     :406-439, crowd_sim_pred.py:167-194): a coin chooses; removal takes up
     to max_remove humans off the end of the active prefix, never a seen one
     (``pred_rule`` selects CrowdSimPred's max_remove rule), addition
     respawns up to ``human_num_range`` new slots past it with fresh belief
     rows. u (B, vary_draws(cfg)): the coin, the two counts and the
-    respawn's draws, in that order."""
+    respawn's draws, in that order. With ``when`` (B,), only the envs where
+    it holds respawn (the caller keeps the others' state)."""
     A, n = cfg.sim.max_human_num, state.human_num
     u_coin, u_rm, u_add, u_gen = spawn.split_draws(
         u, (1, 1, 1, respawn_draws(cfg)))
@@ -581,8 +608,10 @@ def vary_human_num(cfg: Config, u, state: EnvState, pred_rule: bool
     do_remove = u_coin[:, 0] < 0.5
     new_num = torch.where(do_remove, n - remove_num, n + add_num)
     is_new = ~do_remove[:, None] & (idx >= n[:, None]) & (idx < new_num[:, None])
+    if when is not None:
+        is_new = is_new & when[:, None]
     state = _respawn_humans(cfg, u_gen, state, is_new, placed=idx < n[:, None])
-    dummy = _constant(BELIEF_DUMMY, n.device, "sync.vary_beliefs")
+    dummy = _kept_constant(BELIEF_DUMMY, n.device, "sync.vary_beliefs")
     return dataclasses.replace(
         state, human_num=new_num,
         last_human_states=torch.where(is_new[..., None], dummy,
@@ -796,24 +825,23 @@ def step(cfg: Config, state: EnvState, action, phase: str,
         step_count=state.step_count + 1)
 
     # every-5 s population and goal events, guarded by the step counter
+    # (on the card they run every step, masked by it: no host read)
     steps_per_5s = int(round(5.0 / cfg.env.time_step))
     at_5s = (state.step_count % steps_per_5s) == 0
+    on_card = _on_card(at_5s)
     with span("env.events"):
-        if varies and _read_any(at_5s, "sync.events_5s"):
+        if varies and (on_card or _read_any(at_5s, "sync.events_5s")):
             varied = vary_human_num(cfg, u_vary, state,
-                                    pred_rule=cfg.sim.predict_method != "none")
+                                    pred_rule=cfg.sim.predict_method != "none",
+                                    when=at_5s)
             state = tree_where(at_5s, varied, state)
 
     obs, state = generate_ob(cfg, state, reset=False)
 
     with span("env.events"):
         if cfg.humans.random_goal_changing and \
-                _read_any(at_5s, "sync.events_5s"):
-            regoaled = update_human_goals_randomly(cfg, u_goal, state)
-            goal = torch.where(at_5s[:, None, None], regoaled.humans.goal,
-                               state.humans.goal)
-            state = dataclasses.replace(
-                state, humans=dataclasses.replace(state.humans, goal=goal))
+                (on_card or _read_any(at_5s, "sync.events_5s")):
+            state = update_human_goals_randomly(cfg, u_goal, state, when=at_5s)
         if cfg.humans.end_goal_changing:
             state = end_goal_updates(cfg, u_end, state)
     return state, obs, reward, done, info

@@ -10,17 +10,29 @@ runs in or on the device. The functions here take those values as ``u``
 (B, n) and consume them in a fixed layout. The streams differ from
 ``jax.random``'s, so seeded cases match the JAX package only in
 distribution (PARITY.md, "Known deviations" 1).
+
+The rejection-sampling passes, :func:`batched_circle_spawn` and
+:func:`batched_goal_resample`, run their plain versions
+(:func:`reference_circle_spawn`, :func:`reference_goal_resample`: whole-batch
+tensor ops, round by round) for CPU tensors. For CUDA tensors they launch one
+hand-written kernel (``ops/csrc/human_spawn.cu``) that runs every round of a
+pass for each env in a thread block, with the same arithmetic bit for bit and
+no host read.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import List, Tuple
 
 import torch
 
+from ..ops import _build
+from ..utils import profiling
 from ..utils.profiling import count
 
+KERNEL = "human_spawn"
 TWO_PI = 2.0 * math.pi
 ROBOT_CANDIDATES = 24
 SPAWN_ROUNDS = 10
@@ -90,6 +102,31 @@ def batched_circle_spawn(u, need, self_radius, circle_radius: float,
                          robot_pos, robot_goal, robot_radius, humans_pos,
                          humans_goal, humans_radius, placed,
                          discomfort_dist: float, robot_min_dist=None):
+    """:func:`reference_circle_spawn`, as one launch of the kernel's
+    ``circle_spawn`` for CUDA tensors (float32 but the bool masks; the
+    slots in ``need`` are added on the device to ``spawn.slots``). Returns
+    (pos, goal), each (B, A, 2)."""
+    if need.device.type != "cuda":
+        return reference_circle_spawn(
+            u, need, self_radius, circle_radius, robot_pos, robot_goal,
+            robot_radius, humans_pos, humans_goal, humans_radius, placed,
+            discomfort_dist, robot_min_dist)
+    B, A = need.shape
+    pos = torch.empty(B, A, 2, device=need.device)
+    goal = torch.empty_like(pos)
+    launch("circle_spawn", u, circle_spawn_draws(A),
+           (need, self_radius, robot_pos, robot_goal, robot_radius,
+            humans_pos, humans_goal, humans_radius, placed),
+           (pos, goal), (SPAWN_ROUNDS, circle_radius, discomfort_dist,
+                         0.0 if robot_min_dist is None else robot_min_dist,
+                         int(robot_min_dist is not None)))
+    return pos, goal
+
+
+def reference_circle_spawn(u, need, self_radius, circle_radius: float,
+                           robot_pos, robot_goal, robot_radius, humans_pos,
+                           humans_goal, humans_radius, placed,
+                           discomfort_dist: float, robot_min_dist=None):
     """Circle-crossing spawn for every slot in ``need`` (B, A) at once
     (``spawn.py:53-124``): each of ``SPAWN_ROUNDS`` rounds proposes positions
     for the still-unplaced slots, rejecting against the robot's position and
@@ -147,6 +184,27 @@ def batched_goal_resample(u, need, self_radius, v_pref, circle_radius: float,
                           robot_pos, robot_goal, robot_radius, humans_pos,
                           humans_goal, humans_radius, active,
                           discomfort_dist: float):
+    """:func:`reference_goal_resample`, as one launch of the kernel's
+    ``goal_resample`` for CUDA tensors (as :func:`batched_circle_spawn`).
+    Returns goals (B, A, 2)."""
+    if need.device.type != "cuda":
+        return reference_goal_resample(
+            u, need, self_radius, v_pref, circle_radius, robot_pos,
+            robot_goal, robot_radius, humans_pos, humans_goal, humans_radius,
+            active, discomfort_dist)
+    B, A = need.shape
+    goal = torch.empty(B, A, 2, device=need.device)
+    launch("goal_resample", u, goal_resample_draws(A),
+           (need, self_radius, v_pref, robot_pos, robot_goal, robot_radius,
+            humans_pos, humans_goal, humans_radius, active),
+           (goal,), (GOAL_ROUNDS, circle_radius, discomfort_dist))
+    return goal
+
+
+def reference_goal_resample(u, need, self_radius, v_pref,
+                            circle_radius: float, robot_pos, robot_goal,
+                            robot_radius, humans_pos, humans_goal,
+                            humans_radius, active, discomfort_dist: float):
     """Resample mid-episode goals for all ``need`` slots at once
     (``spawn.py:127-166``). u (B, goal_resample_draws(A)). Returns goals
     (B, A, 2)."""
@@ -175,6 +233,61 @@ def batched_goal_resample(u, need, self_radius, v_pref, circle_radius: float,
         goal = torch.where(accept[..., None], prop, goal)
         done = done | accept
     return goal
+
+
+# each kernel entry's tensors after ``u``, in order: "bool" for a (B, A)
+# mask, else a float32 tensor's dims after B ("A" for the slots); then its
+# scalars' C types after B and A
+_ENTRIES = {
+    "circle_spawn": (("bool", ("A",), (2,), (2,), (), ("A", 2), ("A", 2),
+                      ("A",), "bool"),
+                     [_build.I] + [_build.D] * 3 + [_build.I]),
+    "goal_resample": (("bool", ("A",), ("A",), (2,), (2,), (), ("A", 2),
+                       ("A", 2), ("A",), "bool"),
+                      [_build.I] + [_build.D] * 2),
+}
+
+
+def launch(symbol: str, u, draws: int, args, outs, scalars):
+    """One launch of the kernel's entry ``symbol`` on ``args`` (its tensors
+    in order, checked against ``_ENTRIES``), writing ``outs``. ``u``
+    (B, draws) may be a column slice of a wider draw; ``scalars`` are the
+    rounds and the plain version's Python numbers. Raises on what the
+    kernel does not take; counts the launch in ``launch.launches``."""
+    kinds, scalar_types = _ENTRIES[symbol]
+    B, A = args[0].shape
+    device = args[0].device
+    if u.dtype != torch.float32 or u.device != device \
+            or u.shape != (B, draws):
+        raise ValueError(f"u must be float32 ({B}, {draws}) on {device}, "
+                         f"got {u.dtype} {tuple(u.shape)} on {u.device}")
+    if u.stride(1) != 1:
+        u = u.contiguous()
+    for i, (t, kind) in enumerate(zip(args, kinds)):
+        dtype = torch.bool if kind == "bool" else torch.float32
+        shape = (B, A) if kind == "bool" else \
+            (B, *(A if d == "A" else d for d in kind))
+        if t.dtype != dtype:
+            raise TypeError(f"{symbol} argument {i} is {t.dtype}, not {dtype}")
+        if t.shape != shape or t.device != device:
+            raise ValueError(f"{symbol} argument {i} must be {shape} on "
+                             f"{device}, got {tuple(t.shape)} on {t.device}")
+    args = [t.contiguous() for t in args]
+    slots = profiling.device_counter("spawn.slots", device)
+    fn = _build.kernel_fn(KERNEL, symbol,
+                          [_build.P, ctypes.c_int64]
+                          + [_build.P] * (len(args) + len(outs) + 1)
+                          + [_build.I] * 2 + scalar_types)
+    with _build.on_device(device):
+        rc = fn(u.data_ptr(), u.stride(0),
+                *_build.ptrs(*args, *outs, slots), B, A, *scalars,
+                torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {rc}")
+    launch.launches += 1
+
+
+launch.launches = 0
 
 
 def split_draws(u, sizes) -> Tuple[torch.Tensor, ...]:

@@ -15,8 +15,8 @@ reference only logs wall-clock FPS, train.py:222-232).
   :func:`snapshot` returns the raw spans, per-name count, total and self
   time (the duration less the part its child spans cover) and the
   counters, with the kernels' launch counts since the last :func:`reset`
-  as ``k1.launches``, ``k2.launches``, ``k3.launches`` and
-  ``orca.launches``; a kernel adds to a counter on the device through
+  as ``k1.launches``, ``k2.launches``, ``k3.launches``, ``orca.launches``
+  and ``spawn.launches``; a kernel adds to a counter on the device through
   :func:`device_counter`, which only :func:`snapshot` reads; :func:`readings`
   puts a snapshot per env step, and :func:`per_step_table` prints it.
 - One clock: a Chrome trace that ``torch.profiler`` exports gives each
@@ -50,7 +50,8 @@ _KERNELS = (("k1.launches", "ops.masked_attention", "fused_graph_attention"),
             ("k2.launches", "ops.masked_attention",
              "fused_graph_attention_backward"),
             ("k3.launches", "ops.masked_attention", "packed_masked_attention"),
-            ("orca.launches", "env.orca", "orca_velocity_batch"))
+            ("orca.launches", "env.orca", "orca_velocity_batch"),
+            ("spawn.launches", "env.spawn", "launch"))
 
 
 class Registry:

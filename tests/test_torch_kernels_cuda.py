@@ -58,14 +58,36 @@ neighbor_dist, N = 1, parallel and antiparallel lines). Two runs give the
 same bits; ``.launches`` rises by one a call; a call makes no host sync
 (``torch.cuda.set_sync_debug_mode("error")``), with the spans off and on;
 ``orca.lp3_egos`` equals the number of egos whose plain LP2 failed.
+
+The spawn passes (``env/spawn.py``'s ``batched_circle_spawn`` and
+``batched_goal_resample``, one launch each of ``csrc/human_spawn.cu``) are
+held to their plain versions bit for bit at A = 5, 20, 50 and 300 slots
+and B = 1, 64 and 256 envs, with no slot, every active slot or a random
+third in need (``utils/spawn_scenes``); with the placed slots of a
+respawn, a reset and a human count change; with the unicycle's robot
+distance; with standing humans (v_pref 0) in the goal resample; and where
+every round is rejected, so the fallback proposal is kept. ``.launches``
+rises by one a call and ``spawn.slots`` counts the slots in need. A whole
+``vec_step`` with auto-reset, for the flagship's and config 5's
+configurations, gives the same bits as the benchmark's frozen plain copy
+(``benchmark/reference/crowd_sim.py``, only read here) over 40 steps from
+the same state and generators; and a train-phase env step, its events
+firing, makes no host sync (``torch.cuda.set_sync_debug_mode("error")``).
 """
 
+import dataclasses
 import math
+import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
+from crowdnav_prediction_attngraph_tpu_torch.config import (
+    config_from_snapshot)
+from crowdnav_prediction_attngraph_tpu_torch.env import (
+    crowd_sim, spawn, vector)
 from crowdnav_prediction_attngraph_tpu_torch.env.orca import (
     orca_velocity_batch)
 from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
@@ -76,6 +98,11 @@ from crowdnav_prediction_attngraph_tpu_torch.utils import profiling
 from crowdnav_prediction_attngraph_tpu_torch.utils.orca_oracle import (
     SCENE_SHAPES, SCENE_TIME_HORIZON, SCENE_TIME_STEP, lp2_failures,
     plain_solve, scene_tensors)
+from crowdnav_prediction_attngraph_tpu_torch.utils.spawn_scenes import (
+    NEEDS, PLACED, circle_spawn_args, goal_resample_args)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BENCH = os.path.join(ROOT, "benchmark")
 
 A, D, HEADS = 20, 512, 8
 
@@ -564,3 +591,234 @@ def test_orca_rejects_what_it_does_not_take(cuda_device):
         orca_kernel(args[:8] + [args[8].int(), args[9]])
     with pytest.raises(ValueError):
         orca_kernel(args[:9] + [args[9][:4]])
+
+
+# ------------------------------------------------------------------ spawn
+
+def spawn_counted(fn, args, **kw):
+    """``fn(*args, **kw)`` with the spans on: (its result, ``spawn.slots``,
+    the kernel launches it made)."""
+    before = spawn.launch.launches
+    profiling.enable()
+    profiling.reset()
+    try:
+        out = fn(*args, **kw)
+        slots = profiling.snapshot()["counters"].get("spawn.slots", 0)
+    finally:
+        profiling.disable()
+        profiling.reset()
+    return out, slots, spawn.launch.launches - before
+
+
+def check_circle_spawn(args, robot_min_dist=None):
+    (pos, goal), slots, launches = spawn_counted(
+        spawn.batched_circle_spawn, args, robot_min_dist=robot_min_dist)
+    want_pos, want_goal = spawn.reference_circle_spawn(
+        *args, robot_min_dist=robot_min_dist)
+    assert launches == 1 and slots == int(args[1].sum())
+    assert torch.equal(pos, want_pos) and torch.equal(goal, want_goal)
+    return pos
+
+
+def check_goal_resample(args):
+    goal, slots, launches = spawn_counted(spawn.batched_goal_resample, args)
+    assert launches == 1 and slots == int(args[1].sum())
+    assert torch.equal(goal, spawn.reference_goal_resample(*args))
+    return goal
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need", NEEDS)
+@pytest.mark.parametrize("b", [1, 64, 256])
+@pytest.mark.parametrize("a", [5, 20, 50, 300])
+def test_circle_spawn_matches_plain_bitwise(cuda_device, a, b, need):
+    check_circle_spawn(circle_spawn_args(b, a, a + b, cuda_device, need))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("need", NEEDS)
+@pytest.mark.parametrize("b", [1, 64, 256])
+@pytest.mark.parametrize("a", [5, 20, 50, 300])
+def test_goal_resample_matches_plain_bitwise(cuda_device, a, b, need):
+    check_goal_resample(goal_resample_args(b, a, a * b + 1, cuda_device, need))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot_min_dist", [None, 3.0 * math.sqrt(2.0)],
+                         ids=["holonomic", "unicycle"])
+@pytest.mark.parametrize("placed", PLACED)
+@pytest.mark.parametrize("a,b", [(20, 64), (50, 256)])
+def test_circle_spawn_matches_plain_placed_and_robot_distance(
+        cuda_device, a, b, placed, robot_min_dist):
+    check_circle_spawn(circle_spawn_args(b, a, 5, cuda_device, "random",
+                                         placed), robot_min_dist)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,b", [(20, 64), (50, 256)])
+def test_goal_resample_matches_plain_standing_humans(cuda_device, a, b):
+    check_goal_resample(goal_resample_args(b, a, 6, cuda_device, "all",
+                                           v_pref_zero=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a", [5, 50])
+def test_spawn_keeps_the_fallback_when_every_round_fails(cuda_device, a):
+    """At a discomfort distance of 100 m every proposal is rejected: each
+    slot in need keeps its first (fallback) proposal."""
+    args = circle_spawn_args(64, a, 7, cuda_device, "all",
+                             discomfort_dist=100.0)
+    pos = check_circle_spawn(args)
+    u, need = args[0], args[1]
+    first = u.reshape(64, spawn.SPAWN_ROUNDS + 1, 3 * a)[:, 0]
+    fallback = spawn._ring(first[:, :a], first[:, a:], args[3], 2.0, 0.0)
+    assert need.any() and torch.equal(pos[need], fallback[need])
+    args = goal_resample_args(64, a, 8, cuda_device, "all",
+                              v_pref_zero=True, discomfort_dist=100.0)
+    check_goal_resample(args)
+
+
+@pytest.mark.cuda
+def test_spawn_rejects_what_it_does_not_take(cuda_device):
+    args = circle_spawn_args(8, 5, 0, cuda_device)
+    with pytest.raises(TypeError):
+        spawn.batched_circle_spawn(*args[:2], args[2].double(), *args[3:])
+    with pytest.raises(TypeError):
+        spawn.batched_circle_spawn(*args[:10], args[10].float(), args[11])
+    with pytest.raises(ValueError):
+        spawn.batched_circle_spawn(args[0][:, 1:], *args[1:])
+    with pytest.raises(ValueError):
+        spawn.batched_circle_spawn(*args[:4], args[4][:4], *args[5:])
+    goal_args = goal_resample_args(8, 5, 0, cuda_device)
+    with pytest.raises(ValueError):
+        spawn.batched_goal_resample(goal_args[0].cpu(), *goal_args[1:])
+
+
+def _reference_modules():
+    """The benchmark's frozen plain copy of the env (read, never changed)."""
+    if BENCH not in sys.path:
+        sys.path.insert(0, BENCH)
+    import reference.config as rconfig
+    import reference.crowd_sim as rsim
+    import reference.types as rtypes
+    return rconfig, rsim, rtypes
+
+
+def _copy(x, rtypes=None):
+    """A deep copy of an env tree (generators cloned at their state), as
+    the reference's dataclasses when ``rtypes`` is given."""
+    if dataclasses.is_dataclass(x):
+        cls = type(x) if rtypes is None else getattr(rtypes, type(x).__name__)
+        return cls(**{f.name: _copy(getattr(x, f.name), rtypes)
+                      for f in dataclasses.fields(x)})
+    if isinstance(x, list):
+        return [_copy(v, rtypes) for v in x]
+    if isinstance(x, torch.Generator):
+        g = torch.Generator()
+        g.set_state(x.get_state())
+        return g
+    return x.clone() if isinstance(x, torch.Tensor) else x
+
+
+def _assert_same_tree(a, b, where):
+    if dataclasses.is_dataclass(a):
+        for f in dataclasses.fields(a):
+            _assert_same_tree(getattr(a, f.name), getattr(b, f.name),
+                              f"{where}.{f.name}")
+    elif isinstance(a, list):
+        assert len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            _assert_same_tree(x, y, f"{where}[{i}]")
+    elif isinstance(a, torch.Generator):
+        assert torch.equal(a.get_state(), b.get_state()), where
+    elif isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and torch.equal(a, b), where
+
+
+def _events_state(cfg, state, g):
+    """``state`` with its envs out of phase: step counts and clocks drawn
+    so that every-5 s events and time-outs fall on different steps, and a
+    fifth of the humans on their goals (they respawn at the next step)."""
+    B, A = state.humans.radius.shape
+    steps_per_5s = int(round(5.0 / cfg.env.time_step))
+    steps = torch.randint(0, steps_per_5s, (B,), generator=g)
+    limit = int(cfg.env.time_limit / cfg.env.time_step)
+    clock = torch.randint(limit - 45, limit, (B,), generator=g)
+    on_goal = (torch.rand(B, A, generator=g) < 0.2).to(state.humans.pos.device)
+    h = state.humans
+    return dataclasses.replace(
+        state, step_count=steps.to(state.step_count.device),
+        global_time=(clock * cfg.env.time_step).to(state.global_time),
+        humans=dataclasses.replace(h, goal=torch.where(
+            on_goal[..., None], h.pos, h.goal)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["flagship_gst_h20", "config5_gst_h10-50"])
+def test_vec_step_matches_frozen_reference(cuda_device, config, monkeypatch):
+    """40 train-phase ``vec_step`` calls (auto-reset included; the GST
+    pretext, which is not under test, left out) against the reference's
+    ``step`` and reset of the done envs, from the same reset, state and
+    generators: every tensor and generator state equal at every step."""
+    rconfig, rsim, rtypes = _reference_modules()
+    path = os.path.join(BENCH, "configs", f"{config}.json")
+    cfg, rcfg = config_from_snapshot(path), rconfig.config_from_snapshot(path)
+    B = cfg.ppo.num_processes
+    g = torch.Generator().manual_seed(22)
+    gens = [torch.Generator().manual_seed(1000 + i) for i in range(B)]
+    state, obs = crowd_sim.reset(cfg, _copy(gens), cuda_device)
+    r_state, r_obs = rsim.reset(rcfg, _copy(gens), cuda_device)
+    _assert_same_tree(state, r_state, "reset state")
+    _assert_same_tree(obs, r_obs, "reset obs")
+    state = _events_state(cfg, state, g)
+    r_state = _copy(state, rtypes)
+    monkeypatch.setattr(vector, "pretext_process",
+                        lambda cfg, gst, s, o, r: (s, o, r, torch.zeros_like(r)))
+    before = spawn.launch.launches
+    resets = 0
+    for t in range(40):
+        action = (torch.rand(B, 2, generator=g) * 2.0 - 1.0).to(cuda_device)
+        state, obs, rew, done, info, _ = vector.vec_step(
+            cfg, state, action, "train", None)
+        r_state, r_obs, r_rew, r_done, r_info = rsim.step(
+            rcfg, r_state, action, "train")
+        idx = r_done.nonzero()[:, 0]
+        resets += int(idx.numel() > 0)
+        if idx.numel():
+            fresh, fresh_obs = rsim.reset(
+                rcfg, [r_state.gens[i] for i in idx.tolist()], cuda_device)
+            r_state = rtypes.tree_scatter(idx, fresh, r_state)
+            r_obs = rtypes.tree_scatter(idx, fresh_obs, r_obs)
+        _assert_same_tree(state, r_state, f"step {t} state")
+        _assert_same_tree(obs, r_obs, f"step {t} obs")
+        _assert_same_tree([rew, done, info.outcome],
+                          [r_rew, r_done, r_info.outcome], f"step {t} out")
+    # one launch a step for each event pass, one for each auto-reset
+    events = int(cfg.humans.random_goal_changing) + int(
+        cfg.humans.end_goal_changing) + int(cfg.sim.human_num_range > 0)
+    assert resets > 0
+    assert spawn.launch.launches - before == 40 * events + resets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["flagship_gst_h20", "config5_gst_h10-50"])
+def test_env_step_events_make_no_host_sync(cuda_device, config):
+    cfg = config_from_snapshot(os.path.join(BENCH, "configs",
+                                            f"{config}.json"))
+    B = cfg.ppo.num_processes
+    gens = [torch.Generator().manual_seed(i) for i in range(B)]
+    state, _ = crowd_sim.reset(cfg, gens, cuda_device)
+    state = _events_state(cfg, state, torch.Generator().manual_seed(3))
+    # every env at the 5 s mark after this step
+    steps_per_5s = int(round(5.0 / cfg.env.time_step))
+    state = dataclasses.replace(state, step_count=torch.full_like(
+        state.step_count, steps_per_5s - 1))
+    action = torch.zeros(B, 2, device=cuda_device)
+    crowd_sim.step(cfg, _copy(state), action, "train")   # builds, caches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = crowd_sim.step(cfg, state, action, "train")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out[0].step_count.eq(steps_per_5s).all()

@@ -21,7 +21,11 @@ its five ``srnn.*`` spans, nested in ``policy.act`` and ``ppo.loss``, and
 ``srnn.gru_cells`` = 3 x T a forward; off, they leave the registry empty.
 
 On the CPU, ``orca_velocity_batch`` runs its plain stages (their spans,
-LP3's host read) and never loads the ORCA kernel's library.
+LP3's host read) and never loads the ORCA kernel's library; the spawn
+passes run their plain rounds and never load theirs. The env step's events
+run as on the card, with no host read (unconditionally, masked by the 5 s
+mark and by the humans that reached their goals), and give the bits of the
+CPU's guarded events, in the flagship and config 5.
 
 On the card (marked ``cuda``, skipped here): a flagship env step, and one
 in which every env resets, under ``torch.cuda.set_sync_debug_mode("warn")``
@@ -47,12 +51,15 @@ from crowdnav_prediction_attngraph_tpu_torch import train as train_cli
 from crowdnav_prediction_attngraph_tpu_torch.algo import ppo
 from crowdnav_prediction_attngraph_tpu_torch.config import (
     config_from_snapshot, varnum_config)
-from crowdnav_prediction_attngraph_tpu_torch.env import orca, vector
+from crowdnav_prediction_attngraph_tpu_torch.env import (
+    crowd_sim, orca, spawn, vector)
 from crowdnav_prediction_attngraph_tpu_torch.models import policy as pmod
 from crowdnav_prediction_attngraph_tpu_torch.models.gst.predictor import load_gst
 from crowdnav_prediction_attngraph_tpu_torch.ops import (
     _build, masked_attention)
 from crowdnav_prediction_attngraph_tpu_torch.utils import profiling
+from crowdnav_prediction_attngraph_tpu_torch.utils.spawn_scenes import (
+    circle_spawn_args, goal_resample_args)
 from crowdnav_prediction_attngraph_tpu_torch.utils.orca_oracle import (
     scene_tensors)
 
@@ -151,7 +158,8 @@ def test_off_leaves_registry_empty(flagship):
     snap = profiling.snapshot()
     assert snap["spans"] == [] and snap["totals"] == {}
     assert snap["counters"] == {"k1.launches": 0, "k2.launches": 0,
-                                "k3.launches": 0, "orca.launches": 0}
+                                "k3.launches": 0, "orca.launches": 0,
+                                "spawn.launches": 0}
 
 
 def test_disabled_span_costs_a_flag_test():
@@ -375,6 +383,68 @@ def test_orca_on_cpu_never_loads_the_kernel(egos, n, monkeypatch):
         "orca.lines", "orca.lp2", "orca.lp3"}
 
 
+@pytest.mark.parametrize("which", ["circle_spawn", "goal_resample"])
+def test_spawn_on_cpu_never_loads_the_kernel(which, monkeypatch):
+    """CPU tensors take the plain rounds: the reference functions' bits,
+    nothing counted on the device, and the kernel's library never built or
+    loaded."""
+    def refuse(name):
+        raise AssertionError(f"loaded {name} for CPU tensors")
+    monkeypatch.setattr(_build, "load", refuse)
+    launches = spawn.launch.launches
+    profiling.enable()
+    if which == "circle_spawn":
+        args = circle_spawn_args(6, 20, 2, "cpu")
+        got = spawn.batched_circle_spawn(*args)
+        want = spawn.reference_circle_spawn(*args)
+    else:
+        args = goal_resample_args(6, 20, 2, "cpu")
+        got = [spawn.batched_goal_resample(*args)]
+        want = [spawn.reference_goal_resample(*args)]
+    profiling.disable()
+    assert args[1].any()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert spawn.launch.launches == launches
+    assert "spawn.slots" not in profiling.snapshot()["counters"]
+
+
+@pytest.mark.parametrize("which", ["flagship", "config5"])
+def test_events_without_host_reads_keep_every_bit(which, flagship,
+                                                  monkeypatch):
+    """Three train-phase steps in which the 5 s events fire for half of the
+    envs and a fifth of the humans stand on their goals: the card's events
+    (unconditional, run here on the CPU) give the guarded events' bits and
+    read nothing."""
+    cfg, gst, ts = flagship if which == "flagship" else _setup(which)
+    steps_per_5s = int(round(5.0 / cfg.env.time_step))
+    states = _fork(ts.env_states)
+    h = states.humans
+    g = torch.Generator().manual_seed(4)
+    on_goal = torch.rand(h.radius.shape, generator=g) < 0.2
+    states = dataclasses.replace(
+        states, step_count=torch.tensor([steps_per_5s - 1, 3] * (ENVS // 2)),
+        humans=dataclasses.replace(h, goal=torch.where(
+            on_goal[..., None], h.pos, h.goal)))
+    action = torch.linspace(-1.0, 1.0, 2 * ENVS).reshape(ENVS, 2)
+    outs = []
+    for card in (False, True):
+        monkeypatch.setattr(crowd_sim, "_on_card", lambda t: card)
+        st = _fork(states)
+        profiling.enable()
+        steps = []
+        for _ in range(3):
+            st, *rest = crowd_sim.step(cfg, st, action, "train")
+            steps.append((st, *rest))
+        profiling.disable()
+        c = profiling.snapshot()["counters"]
+        profiling.reset()
+        outs.append(steps)
+        reads = c.get("sync.events_5s", 0) + c.get("sync.end_goal", 0)
+        assert (reads == 0) == card
+    _assert_bit_equal(outs[0], outs[1])
+
+
 # ------------------------------------------------------------ bit-equality
 
 def _flat(x):
@@ -560,8 +630,10 @@ def test_sync_counters_match_sync_debug_warnings():
                                 for w in syncs)
     assert len(syncs) == counted, (dict(sites), c)
     assert c["vec.resets"] == cfg.ppo.num_processes and c["env.steps"] == 2
-    # the ORCA kernel finds its LP3 egos on the device
+    # the ORCA kernel finds its LP3 egos on the device; the events read
+    # nothing
     assert c.get("sync.orca_lp3", 0) == 0 and c["orca.launches"] == 2
+    assert c.get("sync.events_5s", 0) == c.get("sync.end_goal", 0) == 0
 
 
 # ------------------------------------------------ tools/profile_spans.py
