@@ -807,21 +807,16 @@ ATTENTION = ("K1_fused_graph_attention", "K2_fused_graph_attention_backward",
              "K3_packed_masked_attention")
 
 
+# the launch tally's names, as this script prints them
+COUNT_NAMES = dict(zip(profiling.LAUNCH_NAMES, (*ATTENTION, ORCA, SPAWN)))
+
+
 def zero_counts():
-    fused_graph_attention.launches = 0
-    fused_graph_attention_backward.launches = 0
-    packed_masked_attention.launches = 0
-    orca_velocity_batch.launches = 0
-    spawn.launch.launches = 0
+    profiling.zero_launches()
 
 
 def read_counts() -> dict:
-    return {"K1_fused_graph_attention": fused_graph_attention.launches,
-            "K2_fused_graph_attention_backward":
-                fused_graph_attention_backward.launches,
-            "K3_packed_masked_attention": packed_masked_attention.launches,
-            ORCA: orca_velocity_batch.launches,
-            SPAWN: spawn.launch.launches}
+    return {COUNT_NAMES[k]: n for k, n in profiling.launches().items()}
 
 
 def attention_counts(launches) -> dict:
@@ -894,9 +889,9 @@ def phase_orca(device) -> list:
     must run one device kernel, read from a profiler trace, which must
     hold it."""
     t0 = time.perf_counter()
-    before = orca_velocity_batch.launches
+    before = profiling.launches()["orca"]
     shapes = [check_orca(egos, n, device) for egos, n in SCENE_SHAPES]
-    launches = orca_velocity_batch.launches - before
+    launches = profiling.launches()["orca"] - before
     emit("orca", t0, shapes=shapes, launches=launches)
     for m in shapes:
         if m["device_kernels"] is None or len(m["device_kernels"]) != 1:
@@ -959,10 +954,10 @@ def phase_spawn(device) -> list:
     """The spawn kernel at the main path's shapes (``SPAWN_SHAPES``); one
     call must run one device kernel, read from a profiler trace."""
     t0 = time.perf_counter()
-    before = spawn.launch.launches
+    before = profiling.launches()["spawn"]
     shapes = [check_spawn(*shape, device) for shape in SPAWN_SHAPES]
     emit("spawn", t0, shapes=shapes,
-         launches=spawn.launch.launches - before)
+         launches=profiling.launches()["spawn"] - before)
     for m in shapes:
         if m["device_kernels"] is None or len(m["device_kernels"]) != 1:
             fail(f"spawn: device kernels of a call at {m['entry']} "

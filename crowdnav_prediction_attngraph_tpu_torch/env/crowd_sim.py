@@ -101,12 +101,6 @@ def _offset_angle(p1_pos, p1_heading, p2_pos):
     return torch.arccos((fwd * v12).sum(dim=-1).clamp(-1.0, 1.0))
 
 
-def _read_any(mask, site: str) -> bool:
-    """``bool(mask.any())``: a blocking device read, counted as ``site``."""
-    count(site)
-    return bool(mask.any())
-
-
 def _constant(values, device, site: str) -> torch.Tensor:
     """``torch.tensor(values, device=device)``: a copy from pageable host
     memory, which waits for the device as a read does; counted as
@@ -119,22 +113,12 @@ _KEPT: dict = {}
 
 
 def _kept_constant(values, device, site: str) -> torch.Tensor:
-    """:func:`_constant`, made once per card and kept (never written to);
-    the CPU, where the copy waits for nothing, makes it at every call."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return _constant(values, device, site)
-    key = (values, device)
+    """:func:`_constant`, made once per device and kept (never written
+    to)."""
+    key = (values, torch.device(device))
     if key not in _KEPT:
-        _KEPT[key] = _constant(values, device, site)
+        _KEPT[key] = _constant(values, key[1], site)
     return _KEPT[key]
-
-
-def _on_card(t: torch.Tensor) -> bool:
-    """Whether ``t`` is on a card. The events' host reads only skip work
-    that changes no bit: on a card the events run unconditionally (masked
-    as before), with no read; the CPU keeps the reads."""
-    return t.device.type == "cuda"
 
 
 def robot_human_visibility(cfg: Config, state: EnvState) -> torch.Tensor:
@@ -552,8 +536,6 @@ def end_goal_updates(cfg: Config, u, state: EnvState) -> EnvState:
     active = _active_mask(cfg, state.human_num)
     h = state.humans
     reached = active & (torch.linalg.norm(h.goal - h.pos, dim=-1) < h.radius)
-    if not _on_card(reached) and not _read_any(reached, "sync.end_goal"):
-        return state
     if not _unicycle(cfg):
         return _respawn_humans(cfg, u, state, reached)
     A = cfg.sim.max_human_num
@@ -824,13 +806,12 @@ def step(cfg: Config, state: EnvState, action, phase: str,
         global_time=state.global_time + cfg.env.time_step,
         step_count=state.step_count + 1)
 
-    # every-5 s population and goal events, guarded by the step counter
-    # (on the card they run every step, masked by it: no host read)
+    # every-5 s population and goal events: they run every step, masked by
+    # the step counter (no host read)
     steps_per_5s = int(round(5.0 / cfg.env.time_step))
     at_5s = (state.step_count % steps_per_5s) == 0
-    on_card = _on_card(at_5s)
     with span("env.events"):
-        if varies and (on_card or _read_any(at_5s, "sync.events_5s")):
+        if varies:
             varied = vary_human_num(cfg, u_vary, state,
                                     pred_rule=cfg.sim.predict_method != "none",
                                     when=at_5s)
@@ -839,8 +820,7 @@ def step(cfg: Config, state: EnvState, action, phase: str,
     obs, state = generate_ob(cfg, state, reset=False)
 
     with span("env.events"):
-        if cfg.humans.random_goal_changing and \
-                (on_card or _read_any(at_5s, "sync.events_5s")):
+        if cfg.humans.random_goal_changing:
             state = update_human_goals_randomly(cfg, u_goal, state, when=at_5s)
         if cfg.humans.end_goal_changing:
             state = end_goal_updates(cfg, u_end, state)

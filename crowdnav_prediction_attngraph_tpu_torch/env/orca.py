@@ -237,38 +237,22 @@ def orca_velocity_batch(ego_pos, ego_vel, ego_radius, ego_max_speed,
                        time_step=time_step, time_horizon=time_horizon)
 
 
-orca_velocity_batch.launches = 0
-
-
 def _launch(*args, time_step, time_horizon):
     """One launch of the kernel on ``args``, orca_velocity_batch's tensors
-    in its order; checks what the kernel takes first."""
+    in its order."""
     E, N = args[8].shape
     dtype, device = args[0].dtype, args[0].device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"ORCA takes float32 or float64, got {dtype}")
-    shapes = ((E, 2), (E, 2), (E,), (E,), (E, 2), (E, N, 2), (E, N, 2),
-              (E, N), (E, N), (E,))
-    for i, (t, shape) in enumerate(zip(args, shapes)):
-        want = torch.bool if i == 8 else dtype
-        if t.dtype != want:
-            raise TypeError(f"argument {i} is {t.dtype}, not {want}")
-        if t.shape != shape or t.device != device:
-            raise ValueError(f"argument {i} must be {shape} on {device}, "
-                             f"got {tuple(t.shape)} on {t.device}")
-    args = [t.contiguous() for t in args]
     out = torch.empty(E, 2, dtype=dtype, device=device)
-    lp3_egos = profiling.device_counter("orca.lp3_egos", device)
-    fn = _build.kernel_fn(KERNEL, "orca_solve", [_build.P] * 12
-                          + [_build.I] * 2 + [_build.D] * 2 + [_build.I])
-    with _build.on_device(device):
-        rc = fn(*_build.ptrs(*args, out, lp3_egos),
-                E, N, 1.0 / time_horizon, 1.0 / time_step,
-                int(dtype == torch.float64),
-                torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"orca_solve kernel launch failed: cudaError {rc}")
-    orca_velocity_batch.launches += 1
+    shapes = ((E, 2), (E, 2), (E,), (E,), (E, 2), (E, N, 2), (E, N, 2),
+              (E, N), (E, N), (E,), (E, 2), ())
+    dtypes = (dtype,) * 8 + (torch.bool, dtype, dtype, torch.int32)
+    tensors = (*args, out, profiling.device_counter("orca.lp3_egos", device))
+    _build.launch(KERNEL, "orca_solve", "orca",
+                  tuple(zip(tensors, dtypes, shapes)),
+                  (E, N, 1.0 / time_horizon, 1.0 / time_step,
+                   int(dtype == torch.float64)))
     return out
 
 

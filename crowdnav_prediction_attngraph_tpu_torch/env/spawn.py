@@ -22,7 +22,6 @@ no host read.
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import List, Tuple
 
@@ -114,12 +113,16 @@ def batched_circle_spawn(u, need, self_radius, circle_radius: float,
     B, A = need.shape
     pos = torch.empty(B, A, 2, device=need.device)
     goal = torch.empty_like(pos)
-    launch("circle_spawn", u, circle_spawn_draws(A),
-           (need, self_radius, robot_pos, robot_goal, robot_radius,
-            humans_pos, humans_goal, humans_radius, placed),
-           (pos, goal), (SPAWN_ROUNDS, circle_radius, discomfort_dist,
-                         0.0 if robot_min_dist is None else robot_min_dist,
-                         int(robot_min_dist is not None)))
+    f32, mask = torch.float32, torch.bool
+    _launch("circle_spawn", u, circle_spawn_draws(A),
+            ((need, mask, (B, A)), (self_radius, f32, (B, A)),
+             (robot_pos, f32, (B, 2)), (robot_goal, f32, (B, 2)),
+             (robot_radius, f32, (B,)), (humans_pos, f32, (B, A, 2)),
+             (humans_goal, f32, (B, A, 2)), (humans_radius, f32, (B, A)),
+             (placed, mask, (B, A)), (pos, f32, (B, A, 2)),
+             (goal, f32, (B, A, 2))),
+            (SPAWN_ROUNDS, float(circle_radius), float(discomfort_dist),
+             float(robot_min_dist or 0.0), int(robot_min_dist is not None)))
     return pos, goal
 
 
@@ -194,10 +197,15 @@ def batched_goal_resample(u, need, self_radius, v_pref, circle_radius: float,
             active, discomfort_dist)
     B, A = need.shape
     goal = torch.empty(B, A, 2, device=need.device)
-    launch("goal_resample", u, goal_resample_draws(A),
-           (need, self_radius, v_pref, robot_pos, robot_goal, robot_radius,
-            humans_pos, humans_goal, humans_radius, active),
-           (goal,), (GOAL_ROUNDS, circle_radius, discomfort_dist))
+    f32, mask = torch.float32, torch.bool
+    _launch("goal_resample", u, goal_resample_draws(A),
+            ((need, mask, (B, A)), (self_radius, f32, (B, A)),
+             (v_pref, f32, (B, A)), (robot_pos, f32, (B, 2)),
+             (robot_goal, f32, (B, 2)), (robot_radius, f32, (B,)),
+             (humans_pos, f32, (B, A, 2)), (humans_goal, f32, (B, A, 2)),
+             (humans_radius, f32, (B, A)), (active, mask, (B, A)),
+             (goal, f32, (B, A, 2))),
+            (GOAL_ROUNDS, float(circle_radius), float(discomfort_dist)))
     return goal
 
 
@@ -235,59 +243,17 @@ def reference_goal_resample(u, need, self_radius, v_pref,
     return goal
 
 
-# each kernel entry's tensors after ``u``, in order: "bool" for a (B, A)
-# mask, else a float32 tensor's dims after B ("A" for the slots); then its
-# scalars' C types after B and A
-_ENTRIES = {
-    "circle_spawn": (("bool", ("A",), (2,), (2,), (), ("A", 2), ("A", 2),
-                      ("A",), "bool"),
-                     [_build.I] + [_build.D] * 3 + [_build.I]),
-    "goal_resample": (("bool", ("A",), ("A",), (2,), (2,), (), ("A", 2),
-                       ("A", 2), ("A",), "bool"),
-                      [_build.I] + [_build.D] * 2),
-}
-
-
-def launch(symbol: str, u, draws: int, args, outs, scalars):
-    """One launch of the kernel's entry ``symbol`` on ``args`` (its tensors
-    in order, checked against ``_ENTRIES``), writing ``outs``. ``u``
-    (B, draws) may be a column slice of a wider draw; ``scalars`` are the
-    rounds and the plain version's Python numbers. Raises on what the
-    kernel does not take; counts the launch in ``launch.launches``."""
-    kinds, scalar_types = _ENTRIES[symbol]
-    B, A = args[0].shape
-    device = args[0].device
-    if u.dtype != torch.float32 or u.device != device \
-            or u.shape != (B, draws):
-        raise ValueError(f"u must be float32 ({B}, {draws}) on {device}, "
-                         f"got {u.dtype} {tuple(u.shape)} on {u.device}")
-    if u.stride(1) != 1:
-        u = u.contiguous()
-    for i, (t, kind) in enumerate(zip(args, kinds)):
-        dtype = torch.bool if kind == "bool" else torch.float32
-        shape = (B, A) if kind == "bool" else \
-            (B, *(A if d == "A" else d for d in kind))
-        if t.dtype != dtype:
-            raise TypeError(f"{symbol} argument {i} is {t.dtype}, not {dtype}")
-        if t.shape != shape or t.device != device:
-            raise ValueError(f"{symbol} argument {i} must be {shape} on "
-                             f"{device}, got {tuple(t.shape)} on {t.device}")
-    args = [t.contiguous() for t in args]
-    slots = profiling.device_counter("spawn.slots", device)
-    fn = _build.kernel_fn(KERNEL, symbol,
-                          [_build.P, ctypes.c_int64]
-                          + [_build.P] * (len(args) + len(outs) + 1)
-                          + [_build.I] * 2 + scalar_types)
-    with _build.on_device(device):
-        rc = fn(u.data_ptr(), u.stride(0),
-                *_build.ptrs(*args, *outs, slots), B, A, *scalars,
-                torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {rc}")
-    launch.launches += 1
-
-
-launch.launches = 0
+def _launch(symbol: str, u, draws: int, tensors, scalars):
+    """One launch of the kernel's entry ``symbol``: ``u`` (B, draws), which
+    may be a column slice of a wider draw, then ``tensors`` (as
+    ``_build.launch`` takes them, the first (B, A)) and the device counter
+    ``spawn.slots``, then B, A and ``scalars``."""
+    need = tensors[0][0]
+    B, A = need.shape
+    slots = profiling.device_counter("spawn.slots", need.device)
+    _build.launch(KERNEL, symbol, "spawn",
+                  ((_build.Rows(u), torch.float32, (B, draws)), *tensors,
+                   (slots, torch.int32, ())), (B, A, *scalars))
 
 
 def split_draws(u, sizes) -> Tuple[torch.Tensor, ...]:

@@ -8,21 +8,23 @@ shared library lands in ``<repo>/.torch_build/`` (listed in ``.gitignore``)
 under a name that carries the hash of its source, the shared headers of
 ``csrc/`` (``*.cuh``) and the flags, so a changed source is rebuilt and an
 unchanged one is reused. Nothing is built when a module is imported: the
-first call that needs a kernel builds it. :func:`kernel_fn`, :func:`ptrs` and
-:func:`on_device` bind and call a library's C entries.
+first call that needs a kernel builds it. :func:`launch` is the one way to a
+kernel: it checks and lays out the tensors, calls the C entry on the current
+stream and counts the launch in the tally of ``utils/profiling``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Iterable
+from typing import Dict, Iterable, NamedTuple
 
 import torch
+
+from ..utils import profiling
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -101,33 +103,79 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-# the C entries' argument types: pointers (and the stream) as c_void_p, so
+# the C type of each scalar: a ctypes value (such as a c_float) keeps its
+# own; pointers (a tensor's, NULL and the stream) pass as c_void_p, so
 # ctypes does not cut them to 32 bits
-P, I, F, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
+P = ctypes.c_void_p
+_C_TYPES = {int: ctypes.c_int, float: ctypes.c_double, type(None): P}
+_fns: Dict[tuple, object] = {}
 
-_fns = {}
+
+class Rows(NamedTuple):
+    """A 2-D tensor argument whose rows need only be dense (a column slice
+    of a wider tensor): passed as its pointer and its int64 row stride."""
+    tensor: torch.Tensor
 
 
-def kernel_fn(name: str, symbol: str, argtypes):
-    """The C entry ``symbol`` of ``csrc/<name>.cu`` with the given argument
-    types, the stream appended, returning an int (a cudaError)."""
-    fn = _fns.get(symbol)
-    if fn is None:
-        fn = getattr(load(name), symbol)
-        fn.argtypes = list(argtypes) + [P]
-        fn.restype = ctypes.c_int
-        _fns[symbol] = fn
+def _entry(kernel: str, symbol: str, tensors, scalars):
+    """The C entry ``symbol`` of ``csrc/<kernel>.cu`` typed for
+    :func:`launch`'s arguments, the stream last, returning an int (a
+    cudaError)."""
+    argtypes = []
+    for t, _, _ in tensors:
+        argtypes += (P, ctypes.c_int64) if type(t) is Rows else (P,)
+    argtypes += [_C_TYPES.get(type(v)) or type(v) for v in scalars]
+    fn = getattr(load(kernel), symbol)
+    fn.argtypes = argtypes + [P]
+    fn.restype = ctypes.c_int
     return fn
 
 
-def ptrs(*tensors):
-    """Data pointers for a C entry; None (an unused scratch) passes NULL."""
-    return [None if t is None else t.data_ptr() for t in tensors]
-
-
-def on_device(device):
-    """The kernels launch on the current device: a context that makes
-    ``device`` current, or nothing when it already is."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
+def launch(kernel: str, symbol: str, tally: str, tensors, scalars=()):
+    """One launch of the C entry ``symbol`` of ``csrc/<kernel>.cu`` on the
+    current stream of the first tensor's card, counted as ``tally`` in the
+    launch tally. ``tensors`` are (tensor, dtype, shape) each, in the
+    entry's order: a tensor must have that dtype and shape and sit on the
+    first one's CUDA device (else TypeError or ValueError naming its
+    index), is made contiguous where it is not (so an output must be made
+    contiguous: a copy would take its writes) and passes its pointer; None
+    passes NULL, and a :class:`Rows` its pointer and row stride. The
+    ``scalars`` follow: an int passes as a C int, a float as a double, a
+    ctypes value as its type. Nothing is loaded or built before the checks
+    pass; a launch that fails raises RuntimeError with its cudaError."""
+    args, held = [], []
+    for i, (t, dtype, shape) in enumerate(tensors):
+        if t is None:
+            args.append(None)
+            continue
+        rows = type(t) is Rows
+        if rows:
+            t = t.tensor
+        if i == 0:
+            device = t.device
+        if t.dtype != dtype:
+            raise TypeError(f"{symbol} argument {i} is {t.dtype}, not {dtype}")
+        if t.shape != shape or t.device != device:
+            raise ValueError(f"{symbol} argument {i} must be {tuple(shape)} "
+                             f"on {device}, got {tuple(t.shape)} on "
+                             f"{t.device}")
+        if not (t.stride(-1) == 1 if rows else t.is_contiguous()):
+            t = t.contiguous()
+        held.append(t)     # a copy lives until the launch is queued
+        args.append(t.data_ptr())
+        if rows:
+            args.append(t.stride(0))
+    if device.type != "cuda":
+        raise ValueError(f"{symbol} argument 0 is on {device}, not a card")
+    fn = _fns.get((kernel, symbol))
+    if fn is None:
+        fn = _fns[kernel, symbol] = _entry(kernel, symbol, tensors, scalars)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if device.index == torch.cuda.current_device():
+        rc = fn(*args, *scalars, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, *scalars, stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {rc}")
+    profiling.launched(tally)

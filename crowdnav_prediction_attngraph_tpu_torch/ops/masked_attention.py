@@ -42,6 +42,7 @@ send one (the policy's mask keeps detected >= 1).
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -169,34 +170,21 @@ def _check(x, mask, num_heads, compute_dtype, dtypes=(torch.float32,),
         raise TypeError(f"mask must be bool, got {mask.dtype}")
     if D % num_heads:
         raise ValueError(f"D={D} is not a multiple of num_heads={num_heads}")
+    if A < 1 and device.type == "cuda":
+        raise ValueError(f"the kernels take A >= 1, got A={A}")
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute_dtype must be float32 or bfloat16, "
                         f"got {compute_dtype}")
 
 
-def _check_kernel(x, tensors):
-    """What a CUDA kernel takes besides :func:`_check`'s shapes: a CUDA
-    device, A >= 1 (as the JAX kernels; any head dim and any D that
-    num_heads divides) and the ``tensors`` given contiguous (K1's and K2's
-    w_out is laid out by the wrappers)."""
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    if x.shape[1] < 1:
-        raise ValueError(f"the kernels take A >= 1, got A={x.shape[1]}")
-    for name, t in tensors.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _w_out_layout(w_out):
     """(tensor, transposed): w_out as the kernels read it, (in, out)
-    row-major, or its (out, in) row-major storage when it is a transposed
-    view such as an nn.Linear weight's ``.t()`` (no copy either way)."""
-    if w_out.is_contiguous():
-        return w_out, 0
-    if w_out.t().is_contiguous():
-        return w_out, 1
-    return w_out.contiguous(), 0
+    row-major, or, when it is a transposed view such as an nn.Linear
+    weight's ``.t()``, its (out, in) row-major storage ``w_out.t()`` (no
+    copy either way)."""
+    if not w_out.is_contiguous() and w_out.t().is_contiguous():
+        return w_out.t(), 1
+    return w_out, 0
 
 
 def _aligned(t):
@@ -208,16 +196,16 @@ def _aligned(t):
 @functools.lru_cache(maxsize=None)
 def _scales(D, num_heads, compute_dtype):
     """float32(1 / sqrt(hd)), as the plain versions multiply by it, and the
-    same rounded to the compute dtype (K2's q x scale_c)."""
+    same rounded to the compute dtype (K2's q x scale_c), as C floats."""
     scale = 1.0 / math.sqrt(D // num_heads)
-    return (torch.tensor(scale, dtype=torch.float32).item(),
-            torch.tensor(scale, dtype=compute_dtype).item())
+    return (ctypes.c_float(torch.tensor(scale, dtype=torch.float32).item()),
+            ctypes.c_float(torch.tensor(scale, dtype=compute_dtype).item()))
 
 
 def _scratch(device, *pieces):
     """One allocation carved into 16-byte aligned pieces, each (numel, dtype)
     or None: (the buffer, which must outlive the launches, and each piece's
-    address, None for None). Freed after the call, the buffer goes back to
+    address as a C pointer, None for None). Freed after the call, the buffer goes back to
     PyTorch's caching allocator in stream order, so the launches already
     queued on the stream finish with it first."""
     offsets, total = [], 0
@@ -230,7 +218,8 @@ def _scratch(device, *pieces):
         total += -(-numel * dtype.itemsize // 16) * 16
     buf = torch.empty(max(total, 16), dtype=torch.uint8, device=device)
     base = buf.data_ptr()
-    return buf, [None if o is None else base + o for o in offsets]
+    return buf, [None if o is None else ctypes.c_void_p(base + o)
+                 for o in offsets]
 
 
 
@@ -255,7 +244,7 @@ class FusedGraphAttention(torch.autograd.Function):
     def backward(ctx, g):
         x, mask, w_qkv, b_qkv, w_out = ctx.saved_tensors
         dx, dw_qkv, db_qkv, dw_out, db_out = fused_graph_attention_backward(
-            x, mask, w_qkv, b_qkv, w_out, g.contiguous(), ctx.num_heads,
+            x, mask, w_qkv, b_qkv, w_out, g, ctx.num_heads,
             ctx.compute_dtype)
         return dx, None, dw_qkv, db_qkv, dw_out, db_out, None, None
 
@@ -276,20 +265,15 @@ def fused_graph_attention(x, mask, w_qkv, b_qkv, w_out, b_out,
                                      num_heads, compute_dtype)
 
 
-fused_graph_attention.launches = 0
-
-
 def _launch_forward(x, mask, w_qkv, b_qkv, w_out, b_out, num_heads,
                     compute_dtype):
-    _check_kernel(x, {"x": x, "mask": mask, "w_qkv": w_qkv, "b_qkv": b_qkv,
-                      "b_out": b_out})
     rows, A, D = x.shape
     tokens = rows * A
     bf16 = compute_dtype == torch.bfloat16
     w_out, w_out_t = _w_out_layout(w_out)
     x, w_qkv, w_out = _aligned(x), _aligned(w_qkv), _aligned(w_out)
-    out = torch.empty_like(x)
-    cd = compute_dtype
+    fl, cd = torch.float32, compute_dtype
+    out = torch.empty(rows, A, D, device=x.device, dtype=fl)
     # bf16 copies of the f32 product operands (none in f32 mode), then the
     # rounded q|k|v and attention output between the three stages
     copies = ((tokens * D, cd), (3 * D * D, cd), (D * D, cd)) if bf16 \
@@ -297,16 +281,12 @@ def _launch_forward(x, mask, w_qkv, b_qkv, w_out, b_out, num_heads,
     buf, ptrs = _scratch(x.device, *copies, (tokens * 3 * D, cd),
                          (tokens * D, cd))
     scale, _ = _scales(D, num_heads, compute_dtype)
-    fn = _build.kernel_fn(KERNEL, "fused_graph_attention_forward",
-                          [_build.P] * 12 + [_build.I] * 6 + [_build.F])
-    with _build.on_device(x.device):
-        rc = fn(*_build.ptrs(x, mask, w_qkv, b_qkv, w_out, b_out, out),
-                *ptrs, rows, A, D, num_heads, int(bf16), w_out_t, scale,
-                torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_graph_attention kernel launch failed: "
-                           f"cudaError {rc}")
-    fused_graph_attention.launches += 1
+    _build.launch(KERNEL, "fused_graph_attention_forward", "k1",
+                  ((x, fl, (rows, A, D)), (mask, torch.bool, (rows, A)),
+                   (w_qkv, fl, (D, 3 * D)), (b_qkv, fl, (3 * D,)),
+                   (w_out, fl, (D, D)), (b_out, fl, (D,)),
+                   (out, fl, (rows, A, D))),
+                  (*ptrs, rows, A, D, num_heads, int(bf16), w_out_t, scale))
     return out
 
 
@@ -321,8 +301,6 @@ def fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
     if x.device.type == "cpu":
         return reference_fused_graph_attention_backward(
             x, mask, w_qkv, b_qkv, w_out, g, num_heads, compute_dtype)
-    _check_kernel(x, {"x": x, "mask": mask, "w_qkv": w_qkv, "b_qkv": b_qkv,
-                      "g": g})
     rows, A, D = x.shape
     tokens = rows * A
     bf16 = compute_dtype == torch.bfloat16
@@ -331,9 +309,8 @@ def fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
 
     def f32(*shape):
         return torch.empty(shape, device=x.device, dtype=torch.float32)
-    dx = torch.empty_like(x)
-    dw_qkv, db_qkv, dw_out, db_out = f32(D, 3 * D), f32(3 * D), f32(D, D), \
-        f32(D)
+    dx, dw_qkv, db_qkv, dw_out, db_out = f32(rows, A, D), f32(D, 3 * D), \
+        f32(3 * D), f32(D, D), f32(D)
     cd, fl = compute_dtype, torch.float32
     # bf16 copies of the f32 product operands (none in f32 mode); the
     # recomputed q|k|v, dattn, dq|dk|dv (f32 for the bias sums, and in the
@@ -348,21 +325,18 @@ def fused_graph_attention_backward(x, mask, w_qkv, b_qkv, w_out, g,
         (tokens * D, cd), (_BIAS_SLICES * 4 * D, fl),
         (tokens * num_heads * 3, fl))
     scale, scale_c = _scales(D, num_heads, compute_dtype)
-    fn = _build.kernel_fn(KERNEL_BWD, "fused_graph_attention_backward",
-                          [_build.P] * 22 + [_build.I] * 6 + [_build.F] * 2)
-    with _build.on_device(x.device):
-        rc = fn(*_build.ptrs(x, mask, g, w_qkv, b_qkv, w_out, dx, dw_qkv,
-                             db_qkv, dw_out, db_out), *ptrs,
-                rows, A, D, num_heads, int(bf16), w_out_t, scale, scale_c,
-                torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_graph_attention_backward kernel launch "
-                           f"failed: cudaError {rc}")
-    fused_graph_attention_backward.launches += 1
+    _build.launch(KERNEL_BWD, "fused_graph_attention_backward", "k2",
+                  ((x, fl, (rows, A, D)), (mask, torch.bool, (rows, A)),
+                   (g, fl, (rows, A, D)), (w_qkv, fl, (D, 3 * D)),
+                   (b_qkv, fl, (3 * D,)), (w_out, fl, (D, D)),
+                   (dx, fl, (rows, A, D)), (dw_qkv, fl, (D, 3 * D)),
+                   (db_qkv, fl, (3 * D,)), (dw_out, fl, (D, D)),
+                   (db_out, fl, (D,))),
+                  (*ptrs, rows, A, D, num_heads, int(bf16), w_out_t, scale,
+                   scale_c))
     return dx, dw_qkv, db_qkv, dw_out, db_out
 
 
-fused_graph_attention_backward.launches = 0
 _BIAS_SLICES = 16       # kSlices of csrc/fused_graph_attention_bwd.cu
 
 
@@ -399,20 +373,11 @@ def packed_masked_attention(q, k, v, mask, num_heads: int):
                            "require grad")
     if q.device.type == "cpu":
         return reference_masked_attention(q, k, v, mask, num_heads)
-    _check_kernel(q, {"q": q, "k": k, "v": v, "mask": mask})
     rows, A, D = q.shape
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    fn = _build.kernel_fn(KERNEL_ATTN, "packed_masked_attention_forward",
-                          [_build.P] * 5 + [_build.I] * 5)
-    with _build.on_device(q.device):
-        rc = fn(*_build.ptrs(q, k, v, mask, out), rows, A, D, num_heads,
-                int(q.dtype == torch.bfloat16),
-                torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"packed_masked_attention kernel launch failed: "
-                           f"cudaError {rc}")
-    packed_masked_attention.launches += 1
+    _build.launch(KERNEL_ATTN, "packed_masked_attention_forward", "k3",
+                  ((q, q.dtype, q.shape), (k, q.dtype, q.shape),
+                   (v, q.dtype, q.shape), (mask, torch.bool, (rows, A)),
+                   (out, torch.float32, q.shape)),
+                  (rows, A, D, num_heads, int(q.dtype == torch.bfloat16)))
     return out
-
-
-packed_masked_attention.launches = 0

@@ -14,11 +14,14 @@ reference only logs wall-clock FPS, train.py:222-232).
   its host time includes whatever blocking read the block makes.
   :func:`snapshot` returns the raw spans, per-name count, total and self
   time (the duration less the part its child spans cover) and the
-  counters, with the kernels' launch counts since the last :func:`reset`
-  as ``k1.launches``, ``k2.launches``, ``k3.launches``, ``orca.launches``
-  and ``spawn.launches``; a kernel adds to a counter on the device through
+  counters, with the launch tally since the last :func:`reset` as
+  ``k1.launches``, ``k2.launches``, ``k3.launches``, ``orca.launches`` and
+  ``spawn.launches``; a kernel adds to a counter on the device through
   :func:`device_counter`, which only :func:`snapshot` reads; :func:`readings`
   puts a snapshot per env step, and :func:`per_step_table` prints it.
+- The launch tally, always on: ``ops/_build.launch`` adds one to its
+  kernel's name (:data:`LAUNCH_NAMES`) at every launch; :func:`launches`
+  reads it and :func:`zero_launches` (or :func:`reset`) zeroes it.
 - One clock: a Chrome trace that ``torch.profiler`` exports gives each
   event's ``ts`` in microseconds of the same Unix clock, less the trace's
   ``baseTimeNanoseconds``; :func:`trace_us` converts a span's stamp.
@@ -36,7 +39,6 @@ import contextlib
 import functools
 import itertools
 import os
-import sys
 import threading
 import time
 from typing import Dict, List
@@ -44,14 +46,8 @@ from typing import Dict, List
 import torch
 
 RANGE_PREFIX = "crowdnav."
-# the names the kernels' launch counts take, and their entry functions
-# (module of the port, function)
-_KERNELS = (("k1.launches", "ops.masked_attention", "fused_graph_attention"),
-            ("k2.launches", "ops.masked_attention",
-             "fused_graph_attention_backward"),
-            ("k3.launches", "ops.masked_attention", "packed_masked_attention"),
-            ("orca.launches", "env.orca", "orca_velocity_batch"),
-            ("spawn.launches", "env.spawn", "launch"))
+# the kernels' names in the launch tally
+LAUNCH_NAMES = ("k1", "k2", "k3", "orca", "spawn")
 
 
 class Registry:
@@ -64,7 +60,6 @@ class Registry:
         self.counters: Dict[str, int] = collections.defaultdict(int)
         self._ids = itertools.count()
         self._local = threading.local()
-        self._launch_base = _launch_counts()
 
     def span(self, name: str) -> "_Span":
         return _Span(self, name)
@@ -72,7 +67,6 @@ class Registry:
     def reset(self):
         self.spans.clear()
         self.counters.clear()
-        self._launch_base = _launch_counts()
 
     def totals(self) -> Dict[str, dict]:
         """{name: {"count", "total_s", "self_s"}} over the closed spans."""
@@ -90,10 +84,7 @@ class Registry:
         return out
 
     def snapshot(self) -> dict:
-        launches = _launch_counts()
         counters = dict(self.counters)
-        for key, n in launches.items():
-            counters[key] = n - self._launch_base.get(key, 0)
         spans = [{"id": sid, "name": name, "start_ns": t0, "end_ns": t1,
                   "parent": parent, "thread": tid}
                  for sid, name, t0, t1, parent, tid in self.spans]
@@ -132,15 +123,6 @@ class _Span:
         return False
 
 
-def _launch_counts() -> Dict[str, int]:
-    """The kernels' ``.launches`` counters as they stand (0 before their
-    module is loaded)."""
-    package = __name__.rsplit(".", 2)[0]
-    return {key: int(getattr(getattr(sys.modules.get(f"{package}.{module}"),
-                                     fn, None), "launches", 0))
-            for key, module, fn in _KERNELS}
-
-
 # --- the port's registry -----------------------------------------------------
 
 _ON = False
@@ -148,6 +130,7 @@ _NULL = contextlib.nullcontext()
 _REGISTRY = Registry()
 # {(counter name, device): int32 tensor on the device}
 _DEVICE_COUNTERS: Dict[tuple, torch.Tensor] = {}
+_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCH_NAMES, 0)
 
 
 def enable():
@@ -162,18 +145,37 @@ def disable():
 
 def reset():
     """Forget the closed spans and the counters (the device counters are
-    set to 0 on the device); launch counts start again from here."""
+    set to 0 on the device) and zero the launch tally."""
     _REGISTRY.reset()
     for t in _DEVICE_COUNTERS.values():
         t.zero_()
+    zero_launches()
+
+
+def launched(name: str):
+    """Add one launch of kernel ``name`` to the tally (on or off)."""
+    _LAUNCHES[name] += 1
+
+
+def launches() -> Dict[str, int]:
+    """{kernel name: launches since the last zeroing} of the tally."""
+    return dict(_LAUNCHES)
+
+
+def zero_launches():
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
 
 
 def snapshot() -> dict:
     """``{"spans": [...], "totals": {...}, "counters": {...}}`` of the port's
-    registry (see :meth:`Registry.snapshot`), each device counter added to
-    the counter of its name (one blocking read of each)."""
+    registry (see :meth:`Registry.snapshot`), with the launch tally as
+    ``<name>.launches`` and each device counter added to the counter of its
+    name (one blocking read of each)."""
     snap = _REGISTRY.snapshot()
     counters = snap["counters"]
+    for name, n in _LAUNCHES.items():
+        counters[f"{name}.launches"] = n
     for (name, _), t in _DEVICE_COUNTERS.items():
         counters[name] = counters.get(name, 0) + int(t.item())
     return snap

@@ -24,7 +24,7 @@ paths' head dim); and, since their limits went, at A = 257 and 300 (the
 tiled attention), head dims 136 and 256 (column chunks of 128), and D = 100
 with 4 heads and D = 99 with 3 heads (rows that are not a multiple of 16
 bytes: the products' element loads). They take every shape the JAX kernels
-take and refuse only what the wrappers check (non-contiguous inputs). K1,
+take; a non-contiguous input gives the contiguous one's bits. K1,
 like K2, gives the same bits on two runs: every sum runs in a fixed order,
 without atomics.
 
@@ -55,7 +55,7 @@ egos x 21 lines and 12,800 x 51 for the humans of the flagship and config
 crowds where a fifth to a quarter of the egos fail LP2 and run LP3, and in
 degenerate scenes (coincident agents, every neighbour masked or out of
 neighbor_dist, N = 1, parallel and antiparallel lines). Two runs give the
-same bits; ``.launches`` rises by one a call; a call makes no host sync
+same bits; the launch tally's ``orca`` rises by one a call; a call makes no host sync
 (``torch.cuda.set_sync_debug_mode("error")``), with the spans off and on;
 ``orca.lp3_egos`` equals the number of egos whose plain LP2 failed.
 
@@ -66,8 +66,8 @@ and B = 1, 64 and 256 envs, with no slot, every active slot or a random
 third in need (``utils/spawn_scenes``); with the placed slots of a
 respawn, a reset and a human count change; with the unicycle's robot
 distance; with standing humans (v_pref 0) in the goal resample; and where
-every round is rejected, so the fallback proposal is kept. ``.launches``
-rises by one a call and ``spawn.slots`` counts the slots in need. A whole
+every round is rejected, so the fallback proposal is kept. The launch
+tally's ``spawn`` rises by one a call and ``spawn.slots`` counts the slots in need. A whole
 ``vec_step`` with auto-reset, for the flagship's and config 5's
 configurations, gives the same bits as the benchmark's frozen plain copy
 (``benchmark/reference/crowd_sim.py``, only read here) over 40 steps from
@@ -78,11 +78,13 @@ firing, makes no host sync (``torch.cuda.set_sync_debug_mode("error")``).
 import dataclasses
 import math
 import os
-import sys
 
 import numpy as np
 import pytest
 import torch
+
+import frozen_reference
+from frozen_reference import BENCH, assert_same_tree, copy_tree
 
 from crowdnav_prediction_attngraph_tpu_torch.config import (
     config_from_snapshot)
@@ -100,9 +102,6 @@ from crowdnav_prediction_attngraph_tpu_torch.utils.orca_oracle import (
     plain_solve, scene_tensors)
 from crowdnav_prediction_attngraph_tpu_torch.utils.spawn_scenes import (
     NEEDS, PLACED, circle_spawn_args, goal_resample_args)
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BENCH = os.path.join(ROOT, "benchmark")
 
 A, D, HEADS = 20, 512, 8
 
@@ -141,10 +140,10 @@ SHAPES = [(100, 20, D), (64, 20, D), (32, 20, D), (7, 32, D), (3, 5, D),
                                         (torch.bfloat16, 3e-2)])
 def test_k1_matches_plain(cuda_device, rows, a, d, dtype, atol):
     args = k1_inputs(rows, a, rows + a, cuda_device, d)
-    before = fused_graph_attention.launches
+    before = profiling.launches()["k1"]
     got = fused_graph_attention(*args, HEADS, compute_dtype=dtype)
     torch.cuda.synchronize()
-    assert fused_graph_attention.launches == before + 1
+    assert profiling.launches()["k1"] == before + 1
     expect = reference_fused_graph_attention(*args, HEADS, compute_dtype=dtype)
     torch.testing.assert_close(got, expect, rtol=0, atol=atol)
     again = fused_graph_attention(*args, HEADS, compute_dtype=dtype)
@@ -164,10 +163,10 @@ ANY_SHAPES = [(2, 257, D, HEADS), (2, 300, 256, 4), (3, 20, 1088, HEADS),
 def test_k1_matches_plain_any_shape(cuda_device, rows, a, d, heads, dtype,
                                     atol):
     args = k1_inputs(rows, a, rows + a + d, cuda_device, d)
-    before = fused_graph_attention.launches
+    before = profiling.launches()["k1"]
     got = fused_graph_attention(*args, heads, compute_dtype=dtype)
     torch.cuda.synchronize()
-    assert fused_graph_attention.launches == before + 1
+    assert profiling.launches()["k1"] == before + 1
     expect = reference_fused_graph_attention(*args, heads, compute_dtype=dtype)
     torch.testing.assert_close(got, expect, rtol=0, atol=atol)
     assert torch.equal(got, fused_graph_attention(*args, heads,
@@ -192,7 +191,8 @@ def test_k1_all_masked_row_isolation(cuda_device, dtype, a):
 @pytest.mark.cuda
 def test_k1_rejects_what_it_does_not_take(cuda_device):
     """A = 257 and head dim 136, refused before the limits went, now hold
-    their result; a non-contiguous x is still refused."""
+    their result; a non-contiguous x, refused before the launches had one
+    seam, gives the contiguous x's bits."""
     for a, d in ((257, D), (A, 1088)):
         args = k1_inputs(2, a, 0, cuda_device, d)
         torch.testing.assert_close(
@@ -201,9 +201,10 @@ def test_k1_rejects_what_it_does_not_take(cuda_device):
                                             compute_dtype=torch.bfloat16),
             rtol=0, atol=3e-2)
     args = k1_inputs(2, A, 0, cuda_device)
-    with pytest.raises(ValueError):
+    assert torch.equal(
         fused_graph_attention(args[0].transpose(0, 1).contiguous()
-                              .transpose(0, 1), *args[1:], HEADS)
+                              .transpose(0, 1), *args[1:], HEADS),
+        fused_graph_attention(*args, HEADS))
 
 
 def scattered_mask(rows, a, seed, device):
@@ -284,10 +285,10 @@ def assert_k2_close(got, expect, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_matches_plain(cuda_device, rows, a, d, dtype):
     args = k2_inputs(rows, a, rows + a, cuda_device, d)
-    before = fused_graph_attention_backward.launches
+    before = profiling.launches()["k2"]
     got = fused_graph_attention_backward(*args, HEADS, compute_dtype=dtype)
     torch.cuda.synchronize()
-    assert fused_graph_attention_backward.launches == before + 1
+    assert profiling.launches()["k2"] == before + 1
     expect = reference_fused_graph_attention_backward(*args, HEADS,
                                                       compute_dtype=dtype)
     assert_k2_close(got, expect, dtype)
@@ -302,10 +303,10 @@ def test_k2_matches_plain(cuda_device, rows, a, d, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_matches_plain_any_shape(cuda_device, rows, a, d, heads, dtype):
     args = k2_inputs(rows, a, rows + a + d, cuda_device, d)
-    before = fused_graph_attention_backward.launches
+    before = profiling.launches()["k2"]
     got = fused_graph_attention_backward(*args, heads, compute_dtype=dtype)
     torch.cuda.synchronize()
-    assert fused_graph_attention_backward.launches == before + 1
+    assert profiling.launches()["k2"] == before + 1
     expect = reference_fused_graph_attention_backward(*args, heads,
                                                       compute_dtype=dtype)
     assert_k2_close(got, expect, dtype)
@@ -321,16 +322,14 @@ def test_autograd_function_launches_k1_and_k2(cuda_device, dtype):
     x, mask, w_qkv, b_qkv, w_out, b_out = k1_inputs(40, A, 9, cuda_device)
     leaves = [t.clone().requires_grad_(True)
               for t in (x, w_qkv, b_qkv, w_out, b_out)]
-    before = (fused_graph_attention.launches,
-              fused_graph_attention_backward.launches)
+    before = profiling.launches()
     out = fused_graph_attention(leaves[0], mask, *leaves[1:], HEADS,
                                 compute_dtype=dtype)
     g = torch.randn_like(out)
     got = torch.autograd.grad(out, leaves, g)
     torch.cuda.synchronize()
-    assert (fused_graph_attention.launches,
-            fused_graph_attention_backward.launches) == (before[0] + 1,
-                                                         before[1] + 1)
+    assert profiling.launches() == {**before, "k1": before["k1"] + 1,
+                                    "k2": before["k2"] + 1}
     expect = reference_fused_graph_attention_backward(
         x, mask, w_qkv, b_qkv, w_out, g, HEADS, compute_dtype=dtype)
     assert_k2_close(got, expect, dtype)
@@ -361,7 +360,8 @@ def test_w_out_as_a_linear_weight_view(cuda_device, dtype):
 @pytest.mark.cuda
 def test_k2_rejects_what_it_does_not_take(cuda_device):
     """A = 257 and head dim 136, refused before the limits went, now hold
-    their result; a non-contiguous g is still refused."""
+    their result; a non-contiguous g, refused before the launches had one
+    seam, gives the contiguous g's bits."""
     for a, d in ((257, D), (A, 1088)):
         args = k2_inputs(2, a, 0, cuda_device, d)
         assert_k2_close(
@@ -369,9 +369,12 @@ def test_k2_rejects_what_it_does_not_take(cuda_device):
             reference_fused_graph_attention_backward(
                 *args, HEADS, compute_dtype=torch.bfloat16), torch.bfloat16)
     args = k2_inputs(2, A, 0, cuda_device)
-    with pytest.raises(ValueError):
-        fused_graph_attention_backward(*args[:5], args[5].transpose(0, 1)
-                                       .contiguous().transpose(0, 1), HEADS)
+    for t, u in zip(
+            fused_graph_attention_backward(*args[:5], args[5].transpose(0, 1)
+                                           .contiguous().transpose(0, 1),
+                                           HEADS),
+            fused_graph_attention_backward(*args, HEADS)):
+        assert torch.equal(t, u)
 
 
 def k3_inputs(rows, a, seed, device, d=D, dtype=torch.float32):
@@ -408,10 +411,10 @@ K3_CASES = [(100, 20, D, HEADS, torch.float32), (7, 64, D, HEADS, torch.float32)
 @pytest.mark.parametrize("rows,a,d,heads,dtype", K3_CASES)
 def test_k3_matches_plain(cuda_device, rows, a, d, heads, dtype):
     args = k3_inputs(rows, a, rows + a, cuda_device, d, dtype)
-    before = packed_masked_attention.launches
+    before = profiling.launches()["k3"]
     got = packed_masked_attention(*args, heads)
     torch.cuda.synchronize()
-    assert packed_masked_attention.launches == before + 1
+    assert profiling.launches()["k3"] == before + 1
     assert got.dtype == torch.float32
     expect = reference_masked_attention(*args, heads)
     torch.testing.assert_close(got, expect, rtol=0, atol=2e-5)
@@ -461,15 +464,17 @@ def test_k3_split_head_dim_masked_rows_and_keys(cuda_device, a):
 @pytest.mark.cuda
 def test_k3_rejects_what_it_does_not_take(cuda_device):
     """Head dim 257, refused before the split, now holds its result; a
-    non-contiguous q and grad mode are still refused."""
+    non-contiguous q, refused before the launches had one seam, gives the
+    contiguous q's bits; grad mode is still refused."""
     q, k, v, mask = k3_inputs(2, A, 0, cuda_device, 514)
     torch.testing.assert_close(packed_masked_attention(q, k, v, mask, 2),
                                reference_masked_attention(q, k, v, mask, 2),
                                rtol=0, atol=2e-5)
     q, k, v, mask = k3_inputs(2, A, 0, cuda_device)
-    with pytest.raises(ValueError):
-        packed_masked_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
-                                k, v, mask, HEADS)
+    assert torch.equal(
+        packed_masked_attention(q.transpose(0, 1).contiguous()
+                                .transpose(0, 1), k, v, mask, HEADS),
+        packed_masked_attention(q, k, v, mask, HEADS))
     with pytest.raises(RuntimeError):
         packed_masked_attention(q.requires_grad_(True), k, v, mask, HEADS)
 
@@ -554,9 +559,9 @@ def test_orca_matches_plain_degenerate(cuda_device, kind, n):
 @pytest.mark.cuda
 def test_orca_repeats_its_bits_and_counts_launches(cuda_device):
     args = scene_tensors(1280, 21, 11, cuda_device)
-    before = orca_velocity_batch.launches
+    before = profiling.launches()["orca"]
     first, second = orca_kernel(args), orca_kernel(args)
-    assert orca_velocity_batch.launches == before + 2
+    assert profiling.launches()["orca"] == before + 2
     assert torch.equal(first, second)
 
 
@@ -598,16 +603,15 @@ def test_orca_rejects_what_it_does_not_take(cuda_device):
 def spawn_counted(fn, args, **kw):
     """``fn(*args, **kw)`` with the spans on: (its result, ``spawn.slots``,
     the kernel launches it made)."""
-    before = spawn.launch.launches
     profiling.enable()
     profiling.reset()
     try:
         out = fn(*args, **kw)
-        slots = profiling.snapshot()["counters"].get("spawn.slots", 0)
+        counters = profiling.snapshot()["counters"]
     finally:
         profiling.disable()
         profiling.reset()
-    return out, slots, spawn.launch.launches - before
+    return out, counters.get("spawn.slots", 0), counters["spawn.launches"]
 
 
 def check_circle_spawn(args, robot_min_dist=None):
@@ -694,47 +698,6 @@ def test_spawn_rejects_what_it_does_not_take(cuda_device):
         spawn.batched_goal_resample(goal_args[0].cpu(), *goal_args[1:])
 
 
-def _reference_modules():
-    """The benchmark's frozen plain copy of the env (read, never changed)."""
-    if BENCH not in sys.path:
-        sys.path.insert(0, BENCH)
-    import reference.config as rconfig
-    import reference.crowd_sim as rsim
-    import reference.types as rtypes
-    return rconfig, rsim, rtypes
-
-
-def _copy(x, rtypes=None):
-    """A deep copy of an env tree (generators cloned at their state), as
-    the reference's dataclasses when ``rtypes`` is given."""
-    if dataclasses.is_dataclass(x):
-        cls = type(x) if rtypes is None else getattr(rtypes, type(x).__name__)
-        return cls(**{f.name: _copy(getattr(x, f.name), rtypes)
-                      for f in dataclasses.fields(x)})
-    if isinstance(x, list):
-        return [_copy(v, rtypes) for v in x]
-    if isinstance(x, torch.Generator):
-        g = torch.Generator()
-        g.set_state(x.get_state())
-        return g
-    return x.clone() if isinstance(x, torch.Tensor) else x
-
-
-def _assert_same_tree(a, b, where):
-    if dataclasses.is_dataclass(a):
-        for f in dataclasses.fields(a):
-            _assert_same_tree(getattr(a, f.name), getattr(b, f.name),
-                              f"{where}.{f.name}")
-    elif isinstance(a, list):
-        assert len(a) == len(b), where
-        for i, (x, y) in enumerate(zip(a, b)):
-            _assert_same_tree(x, y, f"{where}[{i}]")
-    elif isinstance(a, torch.Generator):
-        assert torch.equal(a.get_state(), b.get_state()), where
-    elif isinstance(a, torch.Tensor):
-        assert a.dtype == b.dtype and torch.equal(a, b), where
-
-
 def _events_state(cfg, state, g):
     """``state`` with its envs out of phase: step counts and clocks drawn
     so that every-5 s events and time-outs fall on different steps, and a
@@ -760,21 +723,21 @@ def test_vec_step_matches_frozen_reference(cuda_device, config, monkeypatch):
     pretext, which is not under test, left out) against the reference's
     ``step`` and reset of the done envs, from the same reset, state and
     generators: every tensor and generator state equal at every step."""
-    rconfig, rsim, rtypes = _reference_modules()
+    rconfig, rsim, rtypes = frozen_reference.modules()
     path = os.path.join(BENCH, "configs", f"{config}.json")
     cfg, rcfg = config_from_snapshot(path), rconfig.config_from_snapshot(path)
     B = cfg.ppo.num_processes
     g = torch.Generator().manual_seed(22)
     gens = [torch.Generator().manual_seed(1000 + i) for i in range(B)]
-    state, obs = crowd_sim.reset(cfg, _copy(gens), cuda_device)
-    r_state, r_obs = rsim.reset(rcfg, _copy(gens), cuda_device)
-    _assert_same_tree(state, r_state, "reset state")
-    _assert_same_tree(obs, r_obs, "reset obs")
+    state, obs = crowd_sim.reset(cfg, copy_tree(gens), cuda_device)
+    r_state, r_obs = rsim.reset(rcfg, copy_tree(gens), cuda_device)
+    assert_same_tree(state, r_state, "reset state")
+    assert_same_tree(obs, r_obs, "reset obs")
     state = _events_state(cfg, state, g)
-    r_state = _copy(state, rtypes)
+    r_state = copy_tree(state, rtypes)
     monkeypatch.setattr(vector, "pretext_process",
                         lambda cfg, gst, s, o, r: (s, o, r, torch.zeros_like(r)))
-    before = spawn.launch.launches
+    before = profiling.launches()["spawn"]
     resets = 0
     for t in range(40):
         action = (torch.rand(B, 2, generator=g) * 2.0 - 1.0).to(cuda_device)
@@ -789,15 +752,15 @@ def test_vec_step_matches_frozen_reference(cuda_device, config, monkeypatch):
                 rcfg, [r_state.gens[i] for i in idx.tolist()], cuda_device)
             r_state = rtypes.tree_scatter(idx, fresh, r_state)
             r_obs = rtypes.tree_scatter(idx, fresh_obs, r_obs)
-        _assert_same_tree(state, r_state, f"step {t} state")
-        _assert_same_tree(obs, r_obs, f"step {t} obs")
-        _assert_same_tree([rew, done, info.outcome],
+        assert_same_tree(state, r_state, f"step {t} state")
+        assert_same_tree(obs, r_obs, f"step {t} obs")
+        assert_same_tree([rew, done, info.outcome],
                           [r_rew, r_done, r_info.outcome], f"step {t} out")
     # one launch a step for each event pass, one for each auto-reset
     events = int(cfg.humans.random_goal_changing) + int(
         cfg.humans.end_goal_changing) + int(cfg.sim.human_num_range > 0)
     assert resets > 0
-    assert spawn.launch.launches - before == 40 * events + resets
+    assert profiling.launches()["spawn"] - before == 40 * events + resets
 
 
 @pytest.mark.cuda
@@ -814,7 +777,7 @@ def test_env_step_events_make_no_host_sync(cuda_device, config):
     state = dataclasses.replace(state, step_count=torch.full_like(
         state.step_count, steps_per_5s - 1))
     action = torch.zeros(B, 2, device=cuda_device)
-    crowd_sim.step(cfg, _copy(state), action, "train")   # builds, caches
+    crowd_sim.step(cfg, copy_tree(state), action, "train")   # builds, caches
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:

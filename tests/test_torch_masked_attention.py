@@ -51,8 +51,9 @@ from crowdnav_prediction_attngraph_tpu.ops.masked_attention import (
     fused_graph_attention as j_fused_graph_attention,
     reference_fused_graph_attention as j_reference)
 from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
-    fused_graph_attention, fused_graph_attention_backward,
-    reference_fused_graph_attention, reference_fused_graph_attention_backward)
+    fused_graph_attention, reference_fused_graph_attention,
+    reference_fused_graph_attention_backward)
+from crowdnav_prediction_attngraph_tpu_torch.utils import profiling
 
 GRADS = ("dx", "dw_qkv", "db_qkv", "dw_out", "db_out")
 
@@ -160,13 +161,13 @@ def test_plain_matches_jax_kernel_interpret_any_shape(rows, A, D, heads):
 
 def test_wrapper_on_cpu_is_the_plain_version():
     args = torch_args(inputs(4, 20, seed=5))
-    before = fused_graph_attention.launches
+    before = profiling.launches()
     for dtype in (torch.float32, torch.bfloat16):
         torch.testing.assert_close(
             fused_graph_attention(*args, 8, compute_dtype=dtype),
             reference_fused_graph_attention(*args, 8, compute_dtype=dtype),
             rtol=0, atol=0)
-    assert fused_graph_attention.launches == before
+    assert profiling.launches() == before
 
 
 def isolation(fn, device, dtype):
@@ -279,14 +280,12 @@ def test_function_backward_is_plain_k2_and_autograd_f32(dtype):
     args = torch_args((x, mask, w_qkv, b_qkv, w_out, b_out))
     g = torch.from_numpy(cotangent(8, 20, seed=4))
     leaves = [args[i].clone().requires_grad_(True) for i in (0, 2, 3, 4, 5)]
-    before = (fused_graph_attention.launches,
-              fused_graph_attention_backward.launches)
+    before = profiling.launches()
     out = fused_graph_attention(leaves[0], args[1], *leaves[1:], 8,
                                 compute_dtype=dtype)
     assert out.grad_fn is not None
     got = torch.autograd.grad(out, leaves, g)
-    assert (fused_graph_attention.launches,
-            fused_graph_attention_backward.launches) == before
+    assert profiling.launches() == before
     plain = reference_fused_graph_attention_backward(
         *args[:5], g, 8, dtype)
     for name, t, e in zip(GRADS, got, plain):

@@ -40,6 +40,7 @@ from crowdnav_prediction_attngraph_tpu.ops.masked_attention import (
 from crowdnav_prediction_attngraph_tpu_torch.ops import bench_edges
 from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (
     packed_masked_attention, reference_masked_attention)
+from crowdnav_prediction_attngraph_tpu_torch.utils import profiling
 
 D, H = 512, 8
 SHAPES = [(13, 20), (32, 6), (7, 32), (5, 50)]
@@ -131,11 +132,11 @@ def test_masked_keys_do_not_leak():
 
 def test_wrapper_on_cpu_is_the_plain_version():
     args = torch_args(inputs(4, 20, seed=5))
-    before = packed_masked_attention.launches
+    before = profiling.launches()
     torch.testing.assert_close(packed_masked_attention(*args, H),
                                reference_masked_attention(*args, H),
                                rtol=0, atol=0)
-    assert packed_masked_attention.launches == before
+    assert profiling.launches() == before
 
 
 def test_wrapper_takes_bf16_and_refuses_mixed_dtypes():

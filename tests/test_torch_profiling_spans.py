@@ -12,8 +12,10 @@ and config 5: their sum equals the blocking host reads the step makes
 (``Tensor.__bool__``, ``nonzero`` and ``tolist`` calls, and
 ``torch.tensor`` constants made on a device, counted by patching them);
 states, observations, rewards and one tiny ``train_iteration`` are
-bit-equal with the spans on and off; the kernels' launch counts appear in
-the snapshot; ``train --spans`` and ``test --spans`` print the table;
+bit-equal with the spans on and off; the launch tally appears in the
+snapshot; ``ops/_build.launch`` refuses a wrong dtype, a wrong shape and
+a CPU tensor, naming the argument, before it loads any library;
+``train --spans`` and ``test --spans`` print the table;
 ``tools/profile_spans.py`` reads a synthetic trace as it should and gives
 its readings at a tiny size (with no device ops on the CPU), DS-RNN's
 among them with ``--config srnn``. DS-RNN's act and minibatch loss give
@@ -25,7 +27,8 @@ LP3's host read) and never loads the ORCA kernel's library; the spawn
 passes run their plain rounds and never load theirs. The env step's events
 run as on the card, with no host read (unconditionally, masked by the 5 s
 mark and by the humans that reached their goals), and give the bits of the
-CPU's guarded events, in the flagship and config 5.
+benchmark's frozen plain copy (``benchmark/reference/crowd_sim.py``), whose
+events read the host first, in the flagship and config 5.
 
 On the card (marked ``cuda``, skipped here): a flagship env step, and one
 in which every env resets, under ``torch.cuda.set_sync_debug_mode("warn")``
@@ -46,6 +49,8 @@ import warnings
 import pytest
 import torch
 
+import frozen_reference
+
 from crowdnav_prediction_attngraph_tpu_torch import test as test_cli
 from crowdnav_prediction_attngraph_tpu_torch import train as train_cli
 from crowdnav_prediction_attngraph_tpu_torch.algo import ppo
@@ -55,8 +60,7 @@ from crowdnav_prediction_attngraph_tpu_torch.env import (
     crowd_sim, orca, spawn, vector)
 from crowdnav_prediction_attngraph_tpu_torch.models import policy as pmod
 from crowdnav_prediction_attngraph_tpu_torch.models.gst.predictor import load_gst
-from crowdnav_prediction_attngraph_tpu_torch.ops import (
-    _build, masked_attention)
+from crowdnav_prediction_attngraph_tpu_torch.ops import _build
 from crowdnav_prediction_attngraph_tpu_torch.utils import profiling
 from crowdnav_prediction_attngraph_tpu_torch.utils.spawn_scenes import (
     circle_spawn_args, goal_resample_args)
@@ -68,12 +72,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = os.path.join(ROOT, "trained_models",
                         "GST_predictor_rand_tpu_r5_selfgst", "config.json")
 ENVS = 4
-# every blocking host read on the train step's path: the four reads of the
-# step, and the reset's and the events' host-to-device constants
-SYNC_SITES = ("sync.vec_done", "sync.orca_lp3", "sync.events_5s",
-              "sync.end_goal", "sync.vec_reset_ids", "sync.reset_robot",
-              "sync.reset_beliefs", "sync.observe_beliefs",
-              "sync.vary_beliefs", "sync.truth_hidden")
+# every blocking host read on the train step's path: the two reads of the
+# step, the reset's, and the host-to-device constants of the reset and the
+# events
+SYNC_SITES = ("sync.vec_done", "sync.orca_lp3", "sync.vec_reset_ids",
+              "sync.reset_robot", "sync.reset_beliefs",
+              "sync.observe_beliefs", "sync.vary_beliefs",
+              "sync.truth_hidden")
 
 
 @pytest.fixture(autouse=True)
@@ -337,16 +342,16 @@ def _blocking_reads(monkeypatch):
 @pytest.mark.parametrize("which", ["flagship", "config5"])
 def test_sync_counters_once_per_hit(which, timeout, flagship, monkeypatch):
     cfg, gst, ts = flagship if which == "flagship" else _setup(which)
+    # the events' kept constant, made at its first use on a device
+    monkeypatch.setattr(crowd_sim, "_KEPT", {})
     calls = _blocking_reads(monkeypatch)
     _step(cfg, gst, ts, spans=True, timeout=timeout)
     monkeypatch.undo()
     c = profiling.snapshot()["counters"]
     varies = cfg.sim.human_num_range > 0
     expected = dict.fromkeys(SYNC_SITES, 0)
-    expected.update({
-        "sync.vec_done": 1, "sync.orca_lp3": 1,
-        "sync.events_5s": int(varies) + int(cfg.humans.random_goal_changing),
-        "sync.end_goal": int(cfg.humans.end_goal_changing)})
+    expected.update({"sync.vec_done": 1, "sync.orca_lp3": 1,
+                     "sync.vary_beliefs": int(varies)})
     if timeout:
         # one batched reset of the done envs
         expected.update({"sync.vec_reset_ids": 1, "sync.reset_robot": 1,
@@ -365,7 +370,7 @@ def test_orca_on_cpu_never_loads_the_kernel(egos, n, monkeypatch):
         raise AssertionError(f"loaded {name} for CPU tensors")
     monkeypatch.setattr(_build, "load", refuse)
     args = scene_tensors(egos, n, 5, "cpu")
-    launches = orca.orca_velocity_batch.launches
+    launches = profiling.launches()
     profiling.enable()
     got = orca.orca_velocity_batch(*args[:9], 0.25, 5.0, args[9])
     profiling.disable()
@@ -378,7 +383,7 @@ def test_orca_on_cpu_never_loads_the_kernel(egos, n, monkeypatch):
     c = profiling.snapshot()["counters"]
     assert c["sync.orca_lp3"] == 1 and c["orca.egos"] == egos
     assert c["orca.lp3_egos"] == int(failed.sum())
-    assert orca.orca_velocity_batch.launches == launches
+    assert profiling.launches() == launches
     assert {s["name"] for s in profiling.snapshot()["spans"]} == {
         "orca.lines", "orca.lp2", "orca.lp3"}
 
@@ -391,7 +396,7 @@ def test_spawn_on_cpu_never_loads_the_kernel(which, monkeypatch):
     def refuse(name):
         raise AssertionError(f"loaded {name} for CPU tensors")
     monkeypatch.setattr(_build, "load", refuse)
-    launches = spawn.launch.launches
+    launches = profiling.launches()
     profiling.enable()
     if which == "circle_spawn":
         args = circle_spawn_args(6, 20, 2, "cpu")
@@ -405,7 +410,7 @@ def test_spawn_on_cpu_never_loads_the_kernel(which, monkeypatch):
     assert args[1].any()
     for x, y in zip(got, want):
         assert torch.equal(x, y)
-    assert spawn.launch.launches == launches
+    assert profiling.launches() == launches
     assert "spawn.slots" not in profiling.snapshot()["counters"]
 
 
@@ -413,10 +418,17 @@ def test_spawn_on_cpu_never_loads_the_kernel(which, monkeypatch):
 def test_events_without_host_reads_keep_every_bit(which, flagship,
                                                   monkeypatch):
     """Three train-phase steps in which the 5 s events fire for half of the
-    envs and a fifth of the humans stand on their goals: the card's events
-    (unconditional, run here on the CPU) give the guarded events' bits and
-    read nothing."""
+    envs and a fifth of the humans stand on their goals: the events, run
+    unconditionally and masked, give the bits of the frozen reference's
+    ``step``, whose events read the host first, and read nothing: the
+    step's only blocking reads are ORCA's LP3 (one a step) and the kept
+    belief constant's first copy."""
     cfg, gst, ts = flagship if which == "flagship" else _setup(which)
+    rconfig, rsim, rtypes = frozen_reference.modules()
+    rcfg = rconfig.config_from_snapshot(FLAGSHIP)
+    rcfg = rcfg.replace(sim=dataclasses.replace(
+        rcfg.sim, human_num=cfg.sim.human_num,
+        human_num_range=cfg.sim.human_num_range))
     steps_per_5s = int(round(5.0 / cfg.env.time_step))
     states = _fork(ts.env_states)
     h = states.humans
@@ -426,23 +438,27 @@ def test_events_without_host_reads_keep_every_bit(which, flagship,
         states, step_count=torch.tensor([steps_per_5s - 1, 3] * (ENVS // 2)),
         humans=dataclasses.replace(h, goal=torch.where(
             on_goal[..., None], h.pos, h.goal)))
+    r_state = frozen_reference.copy_tree(states, rtypes)
     action = torch.linspace(-1.0, 1.0, 2 * ENVS).reshape(ENVS, 2)
-    outs = []
-    for card in (False, True):
-        monkeypatch.setattr(crowd_sim, "_on_card", lambda t: card)
-        st = _fork(states)
-        profiling.enable()
-        steps = []
-        for _ in range(3):
-            st, *rest = crowd_sim.step(cfg, st, action, "train")
-            steps.append((st, *rest))
-        profiling.disable()
-        c = profiling.snapshot()["counters"]
-        profiling.reset()
-        outs.append(steps)
-        reads = c.get("sync.events_5s", 0) + c.get("sync.end_goal", 0)
-        assert (reads == 0) == card
-    _assert_bit_equal(outs[0], outs[1])
+    monkeypatch.setattr(crowd_sim, "_KEPT", {})
+    calls = _blocking_reads(monkeypatch)
+    profiling.enable()
+    st, steps = _fork(states), []
+    for _ in range(3):
+        st, *rest = crowd_sim.step(cfg, st, action, "train")
+        steps.append(frozen_reference.copy_tree([st, *rest]))
+    profiling.disable()
+    monkeypatch.undo()
+    c = profiling.snapshot()["counters"]
+    syncs = {k: v for k, v in c.items() if k.startswith("sync.")}
+    varies = cfg.sim.human_num_range > 0
+    assert syncs == {"sync.orca_lp3": 3, **(
+        {"sync.vary_beliefs": 1} if varies else {})}
+    assert sum(calls.values()) == sum(syncs.values()), dict(calls)
+    for t, got in enumerate(steps):
+        r_state, *r_rest = rsim.step(rcfg, r_state, action, "train")
+        frozen_reference.assert_same_tree(got, [r_state, *r_rest],
+                                          f"step {t}")
 
 
 # ------------------------------------------------------------ bit-equality
@@ -563,16 +579,48 @@ def test_srnn_spans_nest_in_act_and_loss(srnn):
 
 # ------------------------------------------------- launches and the CLIs
 
-def test_snapshot_reads_kernel_launch_counts(monkeypatch):
-    for fn in (masked_attention.fused_graph_attention,
-               masked_attention.fused_graph_attention_backward,
-               masked_attention.packed_masked_attention):
-        monkeypatch.setattr(fn, "launches", fn.launches)
+def test_snapshot_reads_kernel_launch_counts():
     profiling.reset()
-    masked_attention.fused_graph_attention.launches += 3
-    masked_attention.fused_graph_attention_backward.launches += 2
+    for name in ("k1", "k1", "k1", "k2", "k2", "spawn"):
+        profiling.launched(name)
+    assert profiling.launches() == {"k1": 3, "k2": 2, "k3": 0, "orca": 0,
+                                    "spawn": 1}
     c = profiling.snapshot()["counters"]
-    assert (c["k1.launches"], c["k2.launches"], c["k3.launches"]) == (3, 2, 0)
+    assert (c["k1.launches"], c["k2.launches"], c["k3.launches"],
+            c["orca.launches"], c["spawn.launches"]) == (3, 2, 0, 0, 1)
+    profiling.zero_launches()
+    assert set(profiling.launches().values()) == {0}
+    profiling.launched("orca")
+    profiling.reset()
+    assert profiling.snapshot()["counters"]["orca.launches"] == 0
+
+
+@pytest.mark.parametrize("case", ["dtype", "shape", "cpu", "devices"])
+def test_launch_refuses_bad_arguments_before_loading(case, monkeypatch):
+    """``_build.launch`` names the argument it refuses (its index in the
+    entry's tensors) and raises before it builds or loads a library."""
+    def refuse(name):
+        raise AssertionError(f"loaded {name} for arguments it refuses")
+    monkeypatch.setattr(_build, "load", refuse)
+    f32 = torch.float32
+    x, y = torch.zeros(4, 3), torch.zeros(4, dtype=torch.bool)
+    tensors = [(x, f32, (4, 3)), (None, f32, (4, 3)), (y, torch.bool, (4,)),
+               (x, f32, (4, 3))]
+    if case == "dtype":
+        tensors[2] = (y.int(), torch.bool, (4,))
+        error, index = TypeError, 2
+    elif case == "shape":
+        tensors[3] = (x[:2], f32, (4, 3))
+        error, index = ValueError, 3
+    elif case == "cpu":
+        error, index = ValueError, 0
+    else:
+        tensors[0] = (x.to("meta"), f32, (4, 3))
+        error, index = ValueError, 2
+    before = profiling.launches()
+    with pytest.raises(error, match=f"k_entry argument {index} "):
+        _build.launch("k", "k_entry", "k1", tensors, (4, 1.0))
+    assert profiling.launches() == before
 
 
 def test_cli_spans_tables(tmp_path, capsys):
@@ -630,10 +678,8 @@ def test_sync_counters_match_sync_debug_warnings():
                                 for w in syncs)
     assert len(syncs) == counted, (dict(sites), c)
     assert c["vec.resets"] == cfg.ppo.num_processes and c["env.steps"] == 2
-    # the ORCA kernel finds its LP3 egos on the device; the events read
-    # nothing
+    # the ORCA kernel finds its LP3 egos on the device
     assert c.get("sync.orca_lp3", 0) == 0 and c["orca.launches"] == 2
-    assert c.get("sync.events_5s", 0) == c.get("sync.end_goal", 0) == 0
 
 
 # ------------------------------------------------ tools/profile_spans.py
@@ -698,7 +744,9 @@ def test_tool_reports_the_readings_on_the_cpu(capsys):
         json.loads(json.dumps(out))
     assert out["device"] == "cpu" and out["init_state_s"] > 0.0
     s = out["spans"]
-    assert s["env_steps"] == 3 and s["env_syncs"] >= 4.0
+    # the CPU's reads each step: vec_done and ORCA's LP3 (the events read
+    # nothing)
+    assert s["env_steps"] == 3 and s["env_syncs"] >= 2.0
     assert 0.0 < s["orca_ms"] <= s["env_step_ms"]
     for key in ("auto_reset_ms", "orca_lp3_share", "backward_ms"):
         assert s[key] is not None and s[key] >= 0.0, key

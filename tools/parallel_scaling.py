@@ -62,14 +62,13 @@ from crowdnav_prediction_attngraph_tpu_torch.models.gst.predictor import (  # no
     load_gst)
 from crowdnav_prediction_attngraph_tpu_torch.ops import (  # noqa: E402
     bench_edges)
-from crowdnav_prediction_attngraph_tpu_torch.ops.masked_attention import (  # noqa: E402,E501
-    fused_graph_attention, fused_graph_attention_backward)
 from crowdnav_prediction_attngraph_tpu_torch.parallel import (  # noqa: E402
     launch, train_step)
 from crowdnav_prediction_attngraph_tpu_torch.parallel.mesh import (  # noqa: E402,E501
     full_params, make_mesh, shard_params, use_mesh)
 from crowdnav_prediction_attngraph_tpu_torch.test import (  # noqa: E402
     DEFAULT_GST_PARAMS, DEFAULT_MODEL_DIR, DEFAULT_PARAMS)
+from crowdnav_prediction_attngraph_tpu_torch.utils import profiling  # noqa: E402,E501
 
 BOUNDS = {False: (1e-4, 1e-5), True: (2e-4, 2e-5)}   # use_ring -> bounds
 # its gradient is 0 in exact arithmetic (softmax ignores a shift of every
@@ -178,11 +177,9 @@ def parity(cfg, gst, device) -> dict:
         mesh = make_mesh(dp * tp, tp=tp)
         ts = launch.init_sharded_global(c, mesh, gst, device, policy(c))
         it = launch.make_global_iteration(c, mesh, gst)
-        for f in (fused_graph_attention, fused_graph_attention_backward):
-            f.launches = 0
+        profiling.zero_launches()
         (ts, m), _ = timed(lambda: it(ts), device)
-        launches = [fused_graph_attention.launches,
-                    fused_graph_attention_backward.launches]
+        launches = [profiling.launches()[k] for k in ("k1", "k2")]
         got = full_params(ts.model, mesh)
         _, sec = timed(lambda: it(ts), device)
 
