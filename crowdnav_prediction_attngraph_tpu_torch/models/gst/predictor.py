@@ -6,11 +6,20 @@ position/mask history -> displacement-graph inputs -> the recursive st_model
 -> per-step displacement Gaussians accumulated into absolute-frame
 predictions (mu cumsum, sigma^2 cumsum). The JAX version handles one env and
 is vmapped; this one takes a leading env axis.
+
+On CUDA inputs, without a caller-given ``noise``, :func:`gst_predict`
+replays one CUDA graph of :func:`gst_forward` per model and input shape,
+captured at the shape's first call: the same kernels in the same order on
+the same dtypes, so eager's bits, with one launch in place of ~600. CPU
+inputs, and calls given ``noise``, run :func:`gst_forward` op by op. The
+counters ``gst.graph_captures``, ``gst.graph_replays`` and ``gst.eager``
+(CUDA calls run op by op) count the calls (``utils/profiling``).
 """
 
 from __future__ import annotations
 
 import os
+import weakref
 from typing import Tuple
 
 import torch
@@ -18,8 +27,9 @@ import torch
 from ...config import PredConfig
 from ...utils.device import resolve_device
 from ...utils.params import params_tree, tree_to_state_dict
+from ...utils.profiling import count
 from ...utils.torch_import import load_gst_checkpoint
-from .st_model import STModel
+from .st_model import STModel, draw_noise
 
 INVALID = -999.0
 
@@ -53,7 +63,77 @@ def gst_predict(model: STModel, input_traj, input_mask, noise=None
     seeded 0).
 
     Returns (out_traj (B, A, K, 5) [mu_x, mu_y, sx, sy, corr] in the absolute
-    frame, out_mask (B, A, 1) bool)."""
+    frame, out_mask (B, A, 1) bool). CUDA inputs without ``noise`` replay
+    the shape's CUDA graph (see the module's docstring); the returned
+    tensors are the caller's own."""
+    if not input_traj.is_cuda:
+        return gst_forward(model, input_traj, input_mask, noise)
+    if noise is not None:
+        count("gst.eager")
+        return gst_forward(model, input_traj, input_mask, noise)
+    graphs = _GRAPHS.setdefault(model, {})
+    key = (input_traj.shape, input_traj.dtype, input_mask.dtype,
+           input_traj.device)
+    g = graphs.get(key)
+    if g is None or g.params != _param_ptrs(model):
+        with torch.cuda.device(input_traj.device):
+            g = graphs[key] = _Graph(model, input_traj, input_mask)
+        count("gst.graph_captures")
+    else:
+        g.traj.copy_(input_traj)
+        g.mask.copy_(input_mask)
+        count("gst.graph_replays")
+    g.graph.replay()
+    # the next replay overwrites the graph's outputs
+    return g.out[0].clone(), g.out[1].clone()
+
+
+def graph_noise(cfg: PredConfig, B: int, A: int, device):
+    """The ``noise`` a graph is captured with: with the edge selector its
+    Gumbel uniforms, drawn once as every call without ``noise`` draws them
+    (from a generator seeded 0, so the same each call); otherwise none,
+    and no generator is made."""
+    if not cfg.spatial_num_heads_edges:
+        return {}
+    return draw_noise(cfg, B, A, False, None, device)
+
+
+def _param_ptrs(model: STModel) -> tuple:
+    return tuple(p.data_ptr() for p in model.parameters())
+
+
+# {model: {(input shape, dtypes, device): _Graph}}; a model's graphs go
+# with it
+_GRAPHS: "weakref.WeakKeyDictionary[STModel, dict]" = \
+    weakref.WeakKeyDictionary()
+
+
+class _Graph:
+    """:func:`gst_forward` captured for one input shape: the static inputs
+    and noise it reads, the outputs it writes, and the addresses of the
+    parameters it reads (a graph reads weights updated in place; replaced
+    ones make :func:`gst_predict` capture again)."""
+
+    def __init__(self, model: STModel, input_traj, input_mask):
+        B, A = input_traj.shape[:2]
+        self.params = _param_ptrs(model)
+        self.traj, self.mask = input_traj.clone(), input_mask.clone()
+        self.noise = graph_noise(model.cfg, B, A, input_traj.device)
+        # one eager call on a side stream first: cuBLAS sets up lazily
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            gst_forward(model, self.traj, self.mask, self.noise)
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = gst_forward(model, self.traj, self.mask, self.noise)
+
+
+@torch.no_grad()
+def gst_forward(model: STModel, input_traj, input_mask, noise=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gst_predict` op by op, on any device (the eager path)."""
     B, A, L, _ = input_traj.shape
     K = model.cfg.pred_seq_len
     m = input_mask.float()

@@ -235,11 +235,18 @@ def readings(snap: dict) -> dict:
     first) and each counter, and the readings of the layers: ``orca_ms``
     and ``auto_reset_ms`` (the ``env.orca`` and ``vec.auto_reset`` spans),
     ``env_step_ms``, ``orca_lp3_share`` (``orca.lp3_egos`` over
-    ``orca.egos``, %), ``env_syncs`` (the ``sync.*`` counters) and
-    ``backward_ms`` (per ``ppo.backward`` call: one minibatch step)."""
+    ``orca.egos``, %), ``env_syncs`` (the ``sync.*`` counters),
+    ``backward_ms`` (per ``ppo.backward`` call: one minibatch step),
+    ``gst_graph`` (the GST's CUDA calls in all: ``captures``, ``replays``
+    of a captured graph and ``eager`` calls run op by op) and
+    ``gst_graph_share`` (captures and replays over those calls, %)."""
     tot, c = snap["totals"], snap["counters"]
     steps = c.get("env.steps", 0)
     n = max(steps, 1)
+    gst = {k: c.get(f"gst.{name}", 0) for k, name in (
+        ("captures", "graph_captures"), ("replays", "graph_replays"),
+        ("eager", "eager"))}
+    gst_calls = sum(gst.values())
 
     def ms(name, per):
         return tot[name]["total_s"] * 1e3 / per if name in tot else None
@@ -254,6 +261,9 @@ def readings(snap: dict) -> dict:
                          if k.startswith("sync.")) / n,
         "backward_ms": (ms("ppo.backward", tot["ppo.backward"]["count"])
                         if "ppo.backward" in tot else None),
+        "gst_graph": gst,
+        "gst_graph_share": (100.0 * (gst["captures"] + gst["replays"])
+                            / gst_calls if gst_calls else None),
         "spans_per_step": {
             name: {"calls": t["count"] / n, "self_ms": t["self_s"] * 1e3 / n,
                    "total_ms": t["total_s"] * 1e3 / n}
@@ -266,7 +276,7 @@ def readings(snap: dict) -> dict:
 def per_step_table(snap: dict) -> str:
     """The operator's table of a snapshot (see :func:`readings`): each
     span's calls, self and total ms per env step, then each counter per env
-    step."""
+    step, then the GST's CUDA calls in all, where there were any."""
     r = readings(snap)
     lines = [f"{'span':<22}{'calls/step':>11}{'self ms/step':>14}"
              f"{'total ms/step':>15}"]
@@ -276,6 +286,12 @@ def per_step_table(snap: dict) -> str:
     lines.append(f"{'counter':<22}{'per step':>11}")
     for name, v in r["counters_per_step"].items():
         lines.append(f"{name:<22}{v:>11.3f}")
+    if r["gst_graph_share"] is not None:
+        g = r["gst_graph"]
+        pretext = snap["totals"].get("gst.pretext", {}).get("count", 0)
+        lines.append(f"gst graph: {g['captures']} captures, {g['replays']} "
+                     f"replays, {g['eager']} eager; {pretext} pretext "
+                     f"calls; share {r['gst_graph_share']:.1f}%")
     return "\n".join(lines)
 
 

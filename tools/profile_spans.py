@@ -13,12 +13,13 @@ it, from a seeded ``init_params``; srnn: DS-RNN on it in CrowdSimVarNum
 with no predictor, as ``train --env-name CrowdSimVarNum --policy-base
 srnn`` builds it, from a seeded ``init_params``) with the spans on, then:
 
-* ``init_state_s``: the ``ppo.init_train_state`` span of the set-up;
+* ``init_state_s``: the ``ppo.init_train_state`` span of the set-up, and
+  ``init_gst_graph``: its GST calls (the capture of the GST's CUDA graph);
 * after one warm-up iteration, ``--iterations`` iterations with the spans
   on and no profiler: ``profiling.readings`` of them (each span's calls,
   self and total ms per env step, the counters per env step, and
-  ``orca_ms``, ``auto_reset_ms``, ``orca_lp3_share``, ``env_syncs`` and
-  ``backward_ms``);
+  ``orca_ms``, ``auto_reset_ms``, ``orca_lp3_share``, ``env_syncs``,
+  ``backward_ms``, ``gst_graph`` and ``gst_graph_share``);
 * one iteration under ``torch.profiler`` (CPU and, on a card, CUDA): the
   device ops launched inside each ``crowdnav.`` range, per range
   (``orca_kernels`` is ``env.orca``'s), the device's idle share and its
@@ -285,8 +286,9 @@ def main(argv=None) -> dict:
     _sync(device)
     ts = ppo.init_train_state(cfg, gst, device, model)
     _sync(device)
-    out["init_state_s"] = \
-        profiling.snapshot()["totals"]["ppo.init_train_state"]["total_s"]
+    snap = profiling.snapshot()
+    out["init_state_s"] = snap["totals"]["ppo.init_train_state"]["total_s"]
+    out["init_gst_graph"] = profiling.readings(snap)["gst_graph"]
     ts, out["warmup_s"] = _timed_iteration(cfg, ts, gst, device)
 
     profiling.reset()
