@@ -374,7 +374,9 @@ def build_config(args) -> Config:
     the config's own values for flags a CLI does not have (test has no
     minibatch, epoch, entropy or lr-decay flags); and the optional overrides
     ``randomize_attributes``, ``kinematics``, ``robot_v_pref``,
-    ``spin_warmup_steps``, ``gst_matmul_dtype`` and ``policy_base`` (the
+    ``spin_warmup_steps``, ``gst_matmul_dtype``, ``gst_edge_heads`` and
+    ``gst_ghost`` (the GST's edge selector: ``pred.spatial_num_heads_edges``,
+    0 for full connectivity, and ``pred.ghost``) and ``policy_base`` (the
     policy's base, ``robot.policy``: the attention graph or DS-RNN)."""
     if args.env_name == "CrowdSimVarNum":
         cfg = varnum_config(human_num=args.human_num,
@@ -411,6 +413,11 @@ def build_config(args) -> Config:
     if getattr(args, "gst_matmul_dtype", None):
         cfg = cfg.replace(pred=dataclasses.replace(
             cfg.pred, matmul_dtype=args.gst_matmul_dtype))
+    edge_heads = getattr(args, "gst_edge_heads", 0)
+    ghost = getattr(args, "gst_ghost", False)
+    if edge_heads or ghost:
+        cfg = cfg.replace(pred=dataclasses.replace(
+            cfg.pred, spatial_num_heads_edges=edge_heads, ghost=ghost))
     if getattr(args, "policy_base", None):
         cfg = cfg.replace(robot=dataclasses.replace(
             cfg.robot, policy=args.policy_base))

@@ -13,7 +13,10 @@ captured at the shape's first call: the same kernels in the same order on
 the same dtypes, so eager's bits, with one launch in place of ~600. CPU
 inputs, and calls given ``noise``, run :func:`gst_forward` op by op. The
 counters ``gst.graph_captures``, ``gst.graph_replays`` and ``gst.eager``
-(CUDA calls run op by op) count the calls (``utils/profiling``).
+(CUDA calls run op by op) count the calls (``utils/profiling``);
+``gst.edge_rows`` counts, on every call, the edge selector's target rows
+from the shapes (B x A x (obs_len + pred_len - 1); 0 with full
+connectivity).
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ def gst_predict(model: STModel, input_traj, input_mask, noise=None
     frame, out_mask (B, A, 1) bool). CUDA inputs without ``noise`` replay
     the shape's CUDA graph (see the module's docstring); the returned
     tensors are the caller's own."""
+    count("gst.edge_rows", edge_rows(model.cfg, *input_traj.shape[:2]))
     if not input_traj.is_cuda:
         return gst_forward(model, input_traj, input_mask, noise)
     if noise is not None:
@@ -86,6 +90,15 @@ def gst_predict(model: STModel, input_traj, input_mask, noise=None
     g.graph.replay()
     # the next replay overwrites the graph's outputs
     return g.out[0].clone(), g.out[1].clone()
+
+
+def edge_rows(cfg: PredConfig, B: int, A: int) -> int:
+    """The edge selector's target rows in one call over B envs x A humans:
+    one a pedestrian at each of the obs_len observed and pred_len - 1
+    fed-back frames; 0 with full connectivity."""
+    if not cfg.spatial_num_heads_edges:
+        return 0
+    return B * A * (cfg.obs_seq_len + cfg.pred_seq_len - 1)
 
 
 def graph_noise(cfg: PredConfig, B: int, A: int, device):

@@ -27,6 +27,12 @@ bias added in bf16, result widened to f32). Softmax, LayerNorm, the
 renormalisation, the edge selector and the Gaussian head stay f32.
 
 :func:`init_gst` draws fresh parameters with flax's initializers.
+
+Spans (``utils/profiling``, off by default): ``gst.edge_selector`` and
+``gst.node_encoder`` around the spatial encoder's two blocks, once for the
+observation period's frames and once a fed-back frame. They are host spans
+and fire when the forward runs op by op (the CPU, a ``gst.eager`` call, a
+CUDA graph's capture), never inside a graph's replay.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from torch import nn
 
 from ...config import PredConfig
 from ...utils.device import resolve_device
+from ...utils.profiling import span
 
 FLAX_LN_EPS = 1e-6   # flax LayerNorm's default epsilon (torch's is 1e-5)
 
@@ -221,13 +228,15 @@ class GumbelSocialTransformer(nn.Module):
         (B, N, N, d) relative positions, ``tau``, ``hard`` and the uniforms
         u (:func:`draw_noise`) are read only by the edge selector."""
         if hasattr(self, "edge_selector"):
-            _, sampled = self.edge_selector(x, A, attn_mask, tau, hard, u)
-            adj = sampled.sum(dim=2)                   # (B, tgt, nbr[+ghost])
+            with span("gst.edge_selector"):
+                _, sampled = self.edge_selector(x, A, attn_mask, tau, hard, u)
+                adj = sampled.sum(dim=2)               # (B, tgt, nbr[+ghost])
         else:
             adj = attn_mask     # full connectivity (gumbel_social_transformer.py:83-86)
-        h = self.node_embedding(x)
-        for i in range(self.num_layers):
-            h = getattr(self, f"layer_{i}")(h, adj, attn_mask)
+        with span("gst.node_encoder"):
+            h = self.node_embedding(x)
+            for i in range(self.num_layers):
+                h = getattr(self, f"layer_{i}")(h, adj, attn_mask)
         return h
 
 

@@ -16,7 +16,8 @@ batch from the host instead. Both run the same update sequence: the shuffle
 is the JAX package's ``np.random.RandomState(seed + epoch)`` permutation,
 so the batch order is the JAX package's too.
 
-Usage:
+Usage (``--edge-heads 4 --ghost`` trains the sparse GST, whose edge
+selector may pick no neighbour):
   python -m crowdnav_prediction_attngraph_tpu_torch.models.gst.trainer \\
       --data-dir data/orca_20humans --epochs 100 --out results/gst_run
 
@@ -351,7 +352,11 @@ def main(argv=None):
     p.add_argument("--max-peds", type=int, default=32)
     p.add_argument("--seed", type=int, default=1000)
     p.add_argument("--deterministic", action="store_true")
-    p.add_argument("--edge-heads", type=int, default=0)
+    p.add_argument("--edge-heads", type=int, default=0,
+                   help="edge-selector heads (0: full connectivity)")
+    p.add_argument("--ghost", action="store_true",
+                   help="the edge selector's ghost node (needs "
+                        "--edge-heads)")
     p.add_argument("--rotation-pattern", default=None,
                    choices=["random", "right_angle"],
                    help="random-rotation augmentation "
@@ -372,7 +377,8 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     cfg = dataclasses.replace(PredConfig(),
-                              spatial_num_heads_edges=args.edge_heads)
+                              spatial_num_heads_edges=args.edge_heads,
+                              ghost=args.ghost)
     train_w = ds.load_dataset(os.path.join(args.data_dir, "train"),
                               cfg.obs_seq_len, cfg.pred_seq_len,
                               args.max_peds, stride=args.stride,

@@ -8,7 +8,10 @@ Runs the seeded suite and writes the reference metric lines to
 flags (``--env-name``, ``--predict-method``, ``--human-num``,
 ``--human-num-range``, ``--no-randomize-attributes``, and the PPO flags, as
 the JAX CLI does), and then ``--model-dir`` is only where its log goes.
-``--orca-stale-radii`` and ``--gst-matmul-dtype`` apply to either config.
+``--orca-stale-radii`` and ``--gst-matmul-dtype`` apply to either config;
+``--gst-edge-heads`` and ``--gst-ghost`` only to one built from the flags,
+and are refused beside a snapshot, which states its GST's (pass its weights
+with ``--gst-params``).
 ``--out-dir`` defaults to ``torch_eval`` (or, for a scripted run without a
 snapshot, ``--model-dir``), so a model dir's committed log is never
 overwritten; a scripted run's log is ``test_00000.log``.
@@ -123,6 +126,11 @@ def _parser():
     p.add_argument("--gst-matmul-dtype", default=None,
                    choices=["f32", "bf16"],
                    help="override the GST predictor's matmul dtype")
+    p.add_argument("--gst-edge-heads", type=int, default=0,
+                   help="without a snapshot: the GST's edge-selector heads "
+                        "(0: full connectivity)")
+    p.add_argument("--gst-ghost", action="store_true",
+                   help="without a snapshot: the edge selector's ghost node")
     p.add_argument("--params", default=None,
                    help="policy weights (.npz); default: the model dir's "
                         "checkpoint (see above)")
@@ -164,6 +172,10 @@ def load_config(args):
     else, for a scripted robot, the flags (JAX ``test.py:105-124``)."""
     snapshot = args.model_dir and os.path.join(args.model_dir, "config.json")
     if snapshot and os.path.exists(snapshot):
+        if args.gst_edge_heads or args.gst_ghost:
+            raise SystemExit(f"{snapshot} states the GST's edge selector: "
+                             "--gst-edge-heads and --gst-ghost apply only "
+                             "to a config built from the flags")
         cfg, from_snapshot = config_from_snapshot(snapshot), True
     elif args.robot_policy == "network":
         raise SystemExit(f"no config snapshot at {snapshot or '--model-dir'}"

@@ -23,6 +23,16 @@ Runs on ``cuda`` unless ``--device cpu`` is given. ``--gst-params`` (a
 ``.npz`` export, the committed in-repo predictor by default, or one of the
 reference's ``.pt`` checkpoints, as a file or as a results dir holding
 ``checkpoint/epoch_100.pt``) takes the place of ``--gst-model-dir``.
+``--gst-edge-heads N`` and ``--gst-ghost`` run the sparse GST, whose edge
+selector samples each pedestrian's neighbours (with the ghost node, maybe
+none); ``config.json`` keeps both, so ``test --model-dir`` rebuilds the same
+GST (given the same ``--gst-params``). Seeded sparse weights:
+
+  python -m crowdnav_prediction_attngraph_tpu_torch.train \
+      --output-dir trained_models/my_sparse --human-num 30 \
+      --human-num-range 20 --num-processes 256 --gst-edge-heads 4 \
+      --gst-ghost --gst-matmul-dtype f32 --gst-params \
+      crowdnav_prediction_attngraph_tpu_torch/weights/gst_sparse_ghost_e4_seed2022.npz
 
 Data- and tensor-parallel training, one process per GPU (``parallel/``):
 ``--multihost`` with ``--coordinator-address host:port``, ``--num-hosts``
@@ -93,6 +103,13 @@ def _parser():
     p.add_argument("--gst-matmul-dtype", default="bf16",
                    choices=["f32", "bf16"],
                    help="GST predictor inference matmul dtype")
+    p.add_argument("--gst-edge-heads", type=int, default=0,
+                   help="the GST's edge-selector heads "
+                        "(pred.spatial_num_heads_edges; 0: full "
+                        "connectivity, the committed GST's)")
+    p.add_argument("--gst-ghost", action="store_true",
+                   help="the edge selector's ghost node (pred.ghost; needs "
+                        "--gst-edge-heads)")
     p.add_argument("--no-randomize-attributes", dest="randomize_attributes",
                    action="store_false",
                    help="fixed human v_pref/radius")

@@ -238,8 +238,11 @@ def readings(snap: dict) -> dict:
     ``orca.egos``, %), ``env_syncs`` (the ``sync.*`` counters),
     ``backward_ms`` (per ``ppo.backward`` call: one minibatch step),
     ``gst_graph`` (the GST's CUDA calls in all: ``captures``, ``replays``
-    of a captured graph and ``eager`` calls run op by op) and
-    ``gst_graph_share`` (captures and replays over those calls, %)."""
+    of a captured graph and ``eager`` calls run op by op),
+    ``gst_graph_share`` (captures and replays over those calls, %) and
+    ``gst_edge_rows`` (the edge selector's target rows, ``gst.edge_rows``,
+    per ``gst.pretext`` call: B x A x (obs_len + pred_len - 1), 0 with
+    full connectivity)."""
     tot, c = snap["totals"], snap["counters"]
     steps = c.get("env.steps", 0)
     n = max(steps, 1)
@@ -247,6 +250,7 @@ def readings(snap: dict) -> dict:
         ("captures", "graph_captures"), ("replays", "graph_replays"),
         ("eager", "eager"))}
     gst_calls = sum(gst.values())
+    pretext = tot.get("gst.pretext", {}).get("count", 0)
 
     def ms(name, per):
         return tot[name]["total_s"] * 1e3 / per if name in tot else None
@@ -264,6 +268,8 @@ def readings(snap: dict) -> dict:
         "gst_graph": gst,
         "gst_graph_share": (100.0 * (gst["captures"] + gst["replays"])
                             / gst_calls if gst_calls else None),
+        "gst_edge_rows": (c["gst.edge_rows"] / pretext
+                          if pretext and "gst.edge_rows" in c else None),
         "spans_per_step": {
             name: {"calls": t["count"] / n, "self_ms": t["self_s"] * 1e3 / n,
                    "total_ms": t["total_s"] * 1e3 / n}
@@ -276,7 +282,8 @@ def readings(snap: dict) -> dict:
 def per_step_table(snap: dict) -> str:
     """The operator's table of a snapshot (see :func:`readings`): each
     span's calls, self and total ms per env step, then each counter per env
-    step, then the GST's CUDA calls in all, where there were any."""
+    step, then the GST's calls in all and its edge rows a pretext call,
+    where there were any."""
     r = readings(snap)
     lines = [f"{'span':<22}{'calls/step':>11}{'self ms/step':>14}"
              f"{'total ms/step':>15}"]
@@ -286,12 +293,16 @@ def per_step_table(snap: dict) -> str:
     lines.append(f"{'counter':<22}{'per step':>11}")
     for name, v in r["counters_per_step"].items():
         lines.append(f"{name:<22}{v:>11.3f}")
-    if r["gst_graph_share"] is not None:
+    pretext = snap["totals"].get("gst.pretext", {}).get("count", 0)
+    if r["gst_graph_share"] is not None or pretext:
         g = r["gst_graph"]
-        pretext = snap["totals"].get("gst.pretext", {}).get("count", 0)
-        lines.append(f"gst graph: {g['captures']} captures, {g['replays']} "
-                     f"replays, {g['eager']} eager; {pretext} pretext "
-                     f"calls; share {r['gst_graph_share']:.1f}%")
+        line = (f"gst graph: {g['captures']} captures, {g['replays']} "
+                f"replays, {g['eager']} eager; {pretext} pretext calls")
+        if r["gst_graph_share"] is not None:
+            line += f"; share {r['gst_graph_share']:.1f}%"
+        if r["gst_edge_rows"] is not None:
+            line += f"; {r['gst_edge_rows']:.1f} edge rows a pretext call"
+        lines.append(line)
     return "\n".join(lines)
 
 

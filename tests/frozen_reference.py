@@ -1,7 +1,8 @@
-"""The benchmark's frozen plain copy of the env (``benchmark/reference``),
-for the tests that hold the port's env step against it: its modules, a
-copy of an env tree as its dataclasses, and a bit-for-bit comparison. It
-imports no jax, so it serves the card's tests too."""
+"""The benchmark's frozen plain copy of the env and the GST
+(``benchmark/reference``), for the tests that hold the port's env step and
+GST against it: its modules, a copy of an env tree as its dataclasses, and
+a bit-for-bit comparison. It imports no jax, so it serves the card's tests
+too."""
 
 import dataclasses
 import os
@@ -24,6 +25,20 @@ def modules():
     finally:
         sys.path.remove(BENCH)
     return rconfig, rsim, rtypes
+
+
+def gst_modules():
+    """(config, predictor, pretext, types) of the frozen reference's GST
+    path (read, never changed), loaded as :func:`modules` loads the env."""
+    sys.path.insert(0, BENCH)
+    try:
+        import reference.config as rconfig
+        import reference.predictor as rpredictor
+        import reference.pretext as rpretext
+        import reference.types as rtypes
+    finally:
+        sys.path.remove(BENCH)
+    return rconfig, rpredictor, rpretext, rtypes
 
 
 def copy_tree(x, rtypes=None):

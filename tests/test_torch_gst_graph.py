@@ -9,15 +9,20 @@ calls with fresh inputs and switches between the shapes; a call's outputs
 stay as they were after the next call; one capture a shape; replays make
 no host sync; the edge selector's noise is drawn once a shape and gives
 eager's bits; weights updated in place are read, replaced ones captured
-again. The CPU tests: CPU calls run op by op and count nothing; the
-graph's noise is ``draw_noise``'s default draw; ``profiling.readings``
-reports ``gst_graph_share``. This file imports no jax; on the card:
+again; the sparse GST of the ``sparsegst-train`` cell (4 edge heads, the
+ghost, f32, the committed seeded weights) at 256 x 50: replays equal to
+eager, with no host sync, the capture's time and its pool's memory
+printed. The CPU tests: CPU calls run op by op and count only
+``gst.edge_rows``; the graph's noise is ``draw_noise``'s default draw;
+``profiling.readings`` reports ``gst_graph_share``. This file imports no
+jax; on the card:
 
   python -m pytest --noconftest tests/test_torch_gst_graph.py -q -m cuda
 """
 
 import dataclasses
 import os
+import time
 
 import pytest
 import torch
@@ -30,9 +35,10 @@ from crowdnav_prediction_attngraph_tpu_torch.models.gst.st_model import (
     draw_noise, init_gst)
 from crowdnav_prediction_attngraph_tpu_torch.utils import profiling
 
-WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                       "crowdnav_prediction_attngraph_tpu_torch", "weights",
-                       "gst_sj_tpu_r5_b64_epoch100.npz")
+WEIGHTS_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                           "crowdnav_prediction_attngraph_tpu_torch", "weights")
+WEIGHTS = os.path.join(WEIGHTS_DIR, "gst_sj_tpu_r5_b64_epoch100.npz")
+SPARSE_WEIGHTS = os.path.join(WEIGHTS_DIR, "gst_sparse_ghost_e4_seed2022.npz")
 L = 5
 # the flagship's envs x humans, then config 5's
 SHAPES = [(64, 20), (256, 50)]
@@ -70,6 +76,11 @@ def gst_counters(c):
     return {k: v for k, v in c.items() if k.startswith("gst.")}
 
 
+def rows(cfg, B, A):
+    """``gst.edge_rows`` of one call: B x A x 9 frames with the selector."""
+    return B * A * 9 if cfg.spatial_num_heads_edges else 0
+
+
 # --- the CPU: op by op ------------------------------------------------------
 
 @pytest.mark.parametrize("edges,given", [(0, False), (2, False), (2, True)])
@@ -83,7 +94,7 @@ def test_cpu_calls_run_eager(counters, edges, given):
     out, out_mask = gst_predict(model, traj, mask, noise)
     ref, ref_mask = gst_forward(model, traj, mask, noise)
     assert torch.equal(out, ref) and torch.equal(out_mask, ref_mask)
-    assert gst_counters(counters()) == {}
+    assert gst_counters(counters()) == {"gst.edge_rows": rows(cfg, 3, 6)}
     assert model not in predictor._GRAPHS
 
 
@@ -150,7 +161,8 @@ def test_graph_gives_eager_bits(cuda_device, counters, matmul_dtype):
         assert all(torch.equal(a, b) for a, b in zip(got, want)), i
         last = got, want
     assert gst_counters(counters()) == {"gst.graph_captures": 2,
-                                        "gst.graph_replays": 28}
+                                        "gst.graph_replays": 28,
+                                        "gst.edge_rows": 0}
 
 
 @pytest.mark.cuda
@@ -193,7 +205,9 @@ def test_edge_selector_noise_drawn_once(cuda_device, counters, ghost):
     default = draw_noise(cfg, 64, 20, False, None, cuda_device)
     assert all(torch.equal(noise[k], default[k]) for k in default)
     assert gst_counters(counters()) == {"gst.graph_captures": 1,
-                                        "gst.graph_replays": 3}
+                                        "gst.graph_replays": 3,
+                                        "gst.edge_rows": 4 * rows(cfg, 64,
+                                                                  20)}
 
 
 @pytest.mark.cuda
@@ -213,7 +227,8 @@ def test_weights_in_place_read_replaced_captured(cuda_device, counters):
     assert all(torch.equal(a, b)
                for a, b in zip(got, gst_forward(model, traj, mask)))
     assert gst_counters(counters()) == {"gst.graph_captures": 2,
-                                        "gst.graph_replays": 1}
+                                        "gst.graph_replays": 1,
+                                        "gst.edge_rows": 0}
 
 
 @pytest.mark.cuda
@@ -223,5 +238,36 @@ def test_given_noise_runs_eager(cuda_device, counters):
     got = gst_predict(model, traj, mask, noise={})
     assert all(torch.equal(a, b)
                for a, b in zip(got, gst_forward(model, traj, mask)))
-    assert gst_counters(counters()) == {"gst.eager": 1}
+    assert gst_counters(counters()) == {"gst.eager": 1, "gst.edge_rows": 0}
     assert model not in predictor._GRAPHS
+
+
+@pytest.mark.cuda
+def test_sparse_graph_at_config5_gives_eager_bits(cuda_device, counters):
+    """The sparse GST at 256 envs x 50 humans: each replay equals eager bit
+    for bit, replays make no host sync, and the capture's time and the
+    memory its pool and its warm-up hold are printed."""
+    cfg = pred_cfg(matmul_dtype="f32", spatial_num_heads_edges=4, ghost=True)
+    model = load_gst(cfg, SPARSE_WEIGHTS, cuda_device)
+    B, A = SHAPES[1]
+    inputs = [history(B, A, 300 + i, cuda_device) for i in range(4)]
+    torch.cuda.synchronize()
+    reserved, t0 = torch.cuda.memory_reserved(), time.perf_counter()
+    gst_predict(model, *inputs[0])                      # the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    grew = torch.cuda.memory_reserved() - reserved
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [gst_predict(model, *x) for x in inputs[1:]]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for x, got in zip(inputs[1:], outs):
+        want = gst_forward(model, *x)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert gst_counters(counters()) == {"gst.graph_captures": 1,
+                                        "gst.graph_replays": 3,
+                                        "gst.edge_rows": 4 * rows(cfg, B, A)}
+    print(f"sparse GST 256 x 50: capture {capture_s:.3f} s, reserved "
+          f"+{grew / 2**30:.2f} GiB, peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

@@ -1,17 +1,21 @@
 """Where a PPO iteration of the port spends its time, by the port's own spans
-and counters (``utils/profiling``), for the flagship recipe, config 5 or
-DS-RNN.
+and counters (``utils/profiling``), for the flagship recipe, config 5, the
+sparse GST at config 5 or DS-RNN.
 
-  python tools/profile_spans.py [--config flagship|config5|srnn] [--iterations 4]
+  python tools/profile_spans.py [--config flagship|config5|sparsegst|srnn] [--iterations 4]
       [--cost-rounds 4] [--envs N] [--steps T] [--device cuda]
 
 Builds the configuration from the run snapshot in
 trained_models/GST_predictor_rand_tpu_r5_selfgst (flagship: the snapshot
 with the committed policy; config5: BASELINE config 5 on it, as the train
 CLI's ``--human-num 30 --human-num-range 20 --num-processes 256`` builds
-it, from a seeded ``init_params``; srnn: DS-RNN on it in CrowdSimVarNum
-with no predictor, as ``train --env-name CrowdSimVarNum --policy-base
-srnn`` builds it, from a seeded ``init_params``) with the spans on, then:
+it, from a seeded ``init_params``; sparsegst: config 5 with the GST's edge
+selector and ghost in f32 on the committed seeded sparse weights, as
+``--gst-edge-heads 4 --gst-ghost --gst-matmul-dtype f32 --gst-params
+<weights/gst_sparse_ghost_e4_seed2022.npz>`` builds it; srnn: DS-RNN on it
+in CrowdSimVarNum with no predictor, as ``train --env-name CrowdSimVarNum
+--policy-base srnn`` builds it, from a seeded ``init_params``) with the
+spans on, then:
 
 * ``init_state_s``: the ``ppo.init_train_state`` span of the set-up, and
   ``init_gst_graph``: its GST calls (the capture of the GST's CUDA graph);
@@ -19,13 +23,19 @@ srnn`` builds it, from a seeded ``init_params``) with the spans on, then:
   on and no profiler: ``profiling.readings`` of them (each span's calls,
   self and total ms per env step, the counters per env step, and
   ``orca_ms``, ``auto_reset_ms``, ``orca_lp3_share``, ``env_syncs``,
-  ``backward_ms``, ``gst_graph`` and ``gst_graph_share``);
+  ``backward_ms``, ``gst_graph``, ``gst_graph_share`` and
+  ``gst_edge_rows``);
 * one iteration under ``torch.profiler`` (CPU and, on a card, CUDA): the
   device ops launched inside each ``crowdnav.`` range, per range
-  (``orca_kernels`` is ``env.orca``'s), the device's idle share and its
+  (``orca_kernels`` is ``env.orca``'s) and their device ms, the device's
+  idle share and its
   longest kernels, its idle gaps put down to the innermost port span of
   the driving thread (``idle_gaps_by_span``), and the gaps between a
   span's stamps and its range on the trace's clock;
+* where a GST runs, ``eager_gst``: one GST forward op by op on the envs'
+  current pretext inputs under ``torch.profiler`` (a replay hides the
+  spans inside the graph), with the device ms of each ``gst.`` span's
+  range (``gst.edge_selector``, ``gst.node_encoder``) and their spans;
 * ``--cost-rounds`` pairs of iterations with the spans off and on, in
   turns (the registry emptied before each): env steps per second of each,
   and the cost of the spans; and the host cost of one span and one
@@ -55,7 +65,8 @@ sys.path.insert(0, REPO)
 from crowdnav_prediction_attngraph_tpu_torch.algo import ppo  # noqa: E402
 from crowdnav_prediction_attngraph_tpu_torch.config import config_from_snapshot  # noqa: E402
 from crowdnav_prediction_attngraph_tpu_torch.models import policy as pmod  # noqa: E402
-from crowdnav_prediction_attngraph_tpu_torch.models.gst.predictor import load_gst  # noqa: E402
+from crowdnav_prediction_attngraph_tpu_torch.models.gst.predictor import (  # noqa: E402
+    gst_forward, load_gst)
 from crowdnav_prediction_attngraph_tpu_torch.test import (  # noqa: E402
     DEFAULT_GST_PARAMS, DEFAULT_PARAMS)
 from crowdnav_prediction_attngraph_tpu_torch.utils import profiling  # noqa: E402
@@ -64,18 +75,25 @@ SNAPSHOT = os.path.join(REPO, "trained_models",
                         "GST_predictor_rand_tpu_r5_selfgst", "config.json")
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+SPARSE_GST_PARAMS = os.path.join(os.path.dirname(DEFAULT_GST_PARAMS),
+                                 "gst_sparse_ghost_e4_seed2022.npz")
 TOP_LEVEL = ("ppo.rollout", "ppo.update")
 NO_SPAN = "no span"
 
 
 def config(name: str):
-    """The flagship recipe (the snapshot), config 5 or DS-RNN on it."""
+    """The flagship recipe (the snapshot), config 5, the sparse GST at
+    config 5 or DS-RNN on it."""
     cfg = config_from_snapshot(SNAPSHOT)
-    if name == "config5":
+    if name in ("config5", "sparsegst"):
         cfg = cfg.replace(
             sim=dataclasses.replace(cfg.sim, human_num=30,
                                     human_num_range=20),
             ppo=dataclasses.replace(cfg.ppo, num_processes=256))
+    if name == "sparsegst":
+        cfg = cfg.replace(pred=dataclasses.replace(
+            cfg.pred, spatial_num_heads_edges=4, ghost=True,
+            matmul_dtype="f32"))
     elif name == "srnn":
         cfg = cfg.replace(
             env_name="CrowdSimVarNum",
@@ -177,6 +195,7 @@ def trace_metrics(path: str, snap: dict, window_s: float) -> dict:
     # device ops launched inside each range (by the launching thread)
     calls = collections.Counter(n for rs in ranges.values()
                                 for _, _, n in rs if n != "profiler.warm")
+    device_us = collections.Counter()
     index = {}
     for tid, rs in ranges.items():
         per = collections.defaultdict(list)
@@ -185,15 +204,18 @@ def trace_metrics(path: str, snap: dict, window_s: float) -> dict:
         index[tid] = {n: (sorted(v), sorted(a for a, _ in v))
                       for n, v in per.items()}
     ops = collections.Counter()
-    for *_, corr, _ in dev:
+    for s0, e0, corr, _ in dev:
         tid, t = launches.get(corr, (None, None))
         for n, (spans, starts) in index.get(tid, {}).items():
             i = bisect.bisect_right(starts, t) - 1
             if i >= 0 and spans[i][0] <= t <= spans[i][1]:
                 ops[n] += 1
+                device_us[n] += e0 - s0
     out = {"device_ops": len(dev),
            "span_stamp_vs_range_us": {k: _spread(v) for k, v in gaps.items()},
            "ops_per_range": {n: ops[n] / calls[n] for n in sorted(calls)},
+           "device_ms_per_range": {n: device_us[n] / 1e3 / calls[n]
+                                   for n in sorted(calls)},
            "orca_kernels": (ops["env.orca"] / calls["env.orca"]
                             if ops["env.orca"] else None)}
     if not dev:
@@ -249,12 +271,64 @@ def host_cost(readings: dict, n: int = 20000) -> dict:
             "step_ms_off": (spans * span_off + counts * count_off) / 1e3}
 
 
+def _profiled(device, func):
+    """``func()`` under torch.profiler (CPU and, on a card, CUDA): (the
+    port's snapshot of it, the path of its Chrome trace, its seconds)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    profiling.reset()
+    _sync(device)
+    with torch.profiler.profile(activities=acts) as prof:
+        # the profiler's first range opens late: keep it off the readings
+        with profiling.span("profiler.warm"):
+            pass
+        t0 = time.perf_counter()
+        out = func()
+        _sync(device)
+        window_s = time.perf_counter() - t0
+    snap = profiling.snapshot()
+    snap["totals"].pop("profiler.warm")
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    prof.export_chrome_trace(path)
+    return out, snap, path, window_s
+
+
+def eager_gst(cfg, gst, ts, device) -> dict:
+    """One GST forward op by op on the envs' current pretext inputs (the
+    history buffers ``pretext_process`` last wrote), after one to warm up:
+    the device ms and ops of each ``gst.`` range and the spans."""
+    st = ts.env_states
+    traj = st.traj_buffer[:, ::cfg.pred_interval].transpose(1, 2)
+    mask = st.mask_buffer[:, ::cfg.pred_interval].transpose(1, 2)
+    gst_forward(gst, traj, mask)
+    _, snap, path, window_s = _profiled(
+        device, lambda: gst_forward(gst, traj, mask))
+    try:
+        traced = trace_metrics(path, snap, window_s)
+    finally:
+        os.remove(path)
+    keep = ("gst.edge_selector", "gst.node_encoder")
+    return {"window_ms": 1e3 * window_s,
+            "device_ms_per_range": {k: v for k, v in
+                                    traced["device_ms_per_range"].items()
+                                    if k in keep},
+            "ops_per_range": {k: v for k, v in traced["ops_per_range"].items()
+                              if k in keep},
+            "device_busy_ms": 1e3 * traced.get("busy_s", 0.0),
+            "spans": {k: {"calls": t["count"], "total_ms": 1e3 * t["total_s"]}
+                      for k, t in snap["totals"].items() if k in keep}}
+
+
 def build(name: str, device, envs=None, steps=None):
     cfg = config(name)
     cfg = cfg.replace(ppo=dataclasses.replace(
         cfg.ppo, num_processes=envs or cfg.ppo.num_processes,
         num_steps=steps or cfg.ppo.num_steps))
-    gst = (load_gst(cfg.pred, DEFAULT_GST_PARAMS, device)
+    gst_params = (SPARSE_GST_PARAMS if cfg.pred.spatial_num_heads_edges
+                  else DEFAULT_GST_PARAMS)
+    gst = (load_gst(cfg.pred, gst_params, device)
            if cfg.sim.predict_method == "inferred" else None)
     if name == "flagship":
         model = pmod.load_policy(cfg, DEFAULT_PARAMS, device)
@@ -266,7 +340,8 @@ def build(name: str, device, envs=None, steps=None):
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--config", choices=("flagship", "config5", "srnn"),
+    p.add_argument("--config",
+                   choices=("flagship", "config5", "sparsegst", "srnn"),
                    default="flagship")
     p.add_argument("--iterations", type=int, default=4)
     p.add_argument("--cost-rounds", type=int, default=4)
@@ -299,29 +374,15 @@ def main(argv=None) -> dict:
     out["iteration_s"] = times
     out["spans"] = profiling.readings(profiling.snapshot())
 
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    profiling.reset()
-    _sync(device)
-    with torch.profiler.profile(activities=acts) as prof:
-        # the profiler's first range opens late: keep it off the readings
-        with profiling.span("profiler.warm"):
-            pass
-        t0 = time.perf_counter()
-        ts, _ = ppo.train_iteration(cfg, ts, gst)
-        _sync(device)
-        window_s = time.perf_counter() - t0
-    snap = profiling.snapshot()
-    snap["totals"].pop("profiler.warm")
-    fd, path = tempfile.mkstemp(suffix=".json")
-    os.close(fd)
+    (ts, _), snap, path, window_s = _profiled(
+        device, lambda: ppo.train_iteration(cfg, ts, gst))
     try:
-        prof.export_chrome_trace(path)
         out["traced"] = trace_metrics(path, snap, window_s)
     finally:
         os.remove(path)
     out["traced"]["spans"] = profiling.readings(snap)
+    if gst is not None:
+        out["eager_gst"] = eager_gst(cfg, gst, ts, device)
 
     rounds = {"off": [], "on": []}
     env_steps = cfg.ppo.num_processes * cfg.ppo.num_steps
